@@ -1,0 +1,5 @@
+"""PyTorch/CUDA port of the compute plane (models, kernels, serving).
+
+Imports only torch, numpy and the standard library; never JAX and never
+the reference package ``repro``.
+"""

@@ -1,0 +1,22 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """Return ``device`` as a ``torch.device``; raise if it names a card
+    that is not there. The port never falls back to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' was asked for but no CUDA device is available; "
+                "pass device='cpu' to run on the CPU"
+            )
+        # Float32 products and convolutions run in full float32, never TF32:
+        # the reference computes in float32, and TF32 keeps ~3 digits.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev

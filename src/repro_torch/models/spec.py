@@ -1,0 +1,157 @@
+"""Parameter specs and initialisation (dense branch).
+
+Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
+(``models/sharding.py``) and of the spec functions of ``models/model.py``
+and ``models/attention.py``. The shape tree equals the reference's
+``model_spec(cfg)`` for the ported architectures.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from ..tree import leaves_with_names, map_leaves
+from .model import decoder_layout
+
+
+@dataclass
+class ParamLeaf:
+    """Declarative parameter: shape + logical axes + init."""
+
+    shape: tuple[int, ...]
+    axes: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros | ones | embed
+    scale: float | None = None  # overrides the default fan-in scaling
+
+    def __post_init__(self) -> None:
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def _is_leaf(x: Any) -> bool:
+    return isinstance(x, ParamLeaf)
+
+
+def stack_spec(spec: Any, n: int, axis_name: str = "layers") -> Any:
+    """Prefix every leaf with a stacked layer axis."""
+    return map_leaves(
+        lambda leaf: replace(leaf, shape=(n,) + leaf.shape, axes=(axis_name,) + leaf.axes), spec
+    )
+
+
+def spec_shapes(spec: Any) -> Any:
+    """The spec tree with each leaf replaced by its shape."""
+    return map_leaves(lambda leaf: leaf.shape, spec)
+
+
+def init_params(spec: Any, generator: torch.Generator, dtype: torch.dtype,
+                device: str | torch.device) -> dict:
+    """Materialise a parameter tree from a spec tree, directly on ``device``.
+
+    Leaves are drawn in the reference's flatten order (sorted keys) from
+    ``generator``, which must live on ``device``. Init rules are the
+    reference's: zeros, ones, ``embed`` (normal * 0.02) and a fan-in scaled
+    normal whose fan-in is the product of all dims but the last — the
+    stacked layer axis included, exactly as the reference computes it.
+    """
+    dev = resolve_device(device)
+
+    def build(node: Any) -> Any:  # visits leaves in flatten order
+        if _is_leaf(node):
+            return _init_leaf(node, generator, dtype, dev)
+        return {k: build(node[k]) for k in sorted(node)}
+
+    return build(spec)
+
+
+def _init_leaf(leaf: ParamLeaf, gen: torch.Generator, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    if leaf.init == "zeros":
+        return torch.zeros(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "ones":
+        return torch.ones(leaf.shape, dtype=dtype, device=device)
+    if leaf.init == "embed":
+        scale = leaf.scale if leaf.scale is not None else 0.02
+    else:
+        fan_in = 1
+        for d in leaf.shape[:-1]:
+            fan_in *= d
+        scale = leaf.scale if leaf.scale is not None else (1.0 / max(fan_in, 1)) ** 0.5
+    out = torch.randn(leaf.shape, generator=gen, dtype=torch.float32, device=device)
+    return out.mul_(scale).to(dtype)
+
+
+def count_params(spec: Any) -> int:
+    total = 0
+    for _, leaf in leaves_with_names(spec, is_leaf=_is_leaf):
+        n = 1
+        for d in leaf.shape:
+            n *= d
+        total += n
+    return total
+
+
+# ---------------------------------------------------------------------------
+# Spec trees
+# ---------------------------------------------------------------------------
+
+
+def attn_spec(cfg: ModelConfig) -> dict:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    spec = {
+        "wq": ParamLeaf((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": ParamLeaf((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": ParamLeaf((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": ParamLeaf((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = ParamLeaf((h, hd), ("heads", "head_dim"), init="zeros")
+        spec["bk"] = ParamLeaf((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+        spec["bv"] = ParamLeaf((kv, hd), ("kv_heads", "head_dim"), init="zeros")
+    return spec
+
+
+def _norm_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    spec = {"scale": ParamLeaf((d,), ("embed_noshard",), init="ones")}
+    if cfg.norm == "layernorm":
+        spec["bias"] = ParamLeaf((d,), ("embed_noshard",), init="zeros")
+    return spec
+
+
+def _mlp_spec(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    spec = {
+        "w_in": ParamLeaf((d, f), ("embed", "ffn")),
+        "w_out": ParamLeaf((f, d), ("ffn", "embed")),
+    }
+    if cfg.activation in ("swiglu", "geglu"):
+        spec["w_gate"] = ParamLeaf((d, f), ("embed", "ffn"))
+    return spec
+
+
+def _block_spec(cfg: ModelConfig) -> dict:
+    return {
+        "norm1": _norm_spec(cfg),
+        "mixer": attn_spec(cfg),
+        "mlp": _mlp_spec(cfg),
+        "norm2": _norm_spec(cfg),
+    }
+
+
+def model_spec(cfg: ModelConfig) -> dict:
+    layout = decoder_layout(cfg)
+    spec: dict[str, Any] = {
+        "embed": ParamLeaf((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed"),
+        "groups": stack_spec(
+            {f"b{i}": _block_spec(cfg) for i in range(len(layout.group))}, layout.num_groups
+        ),
+        "norm_f": _norm_spec(cfg),
+    }
+    if not cfg.tied_embeddings:
+        spec["lm_head"] = ParamLeaf((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    return spec
