@@ -6,10 +6,10 @@ other id raises ``KeyError`` naming it as not yet ported.
 
 from __future__ import annotations
 
-from . import granite_3_8b, stablelm_3b
+from . import granite_3_8b, rwkv6_7b, stablelm_3b
 from .base import ModelConfig
 
-ARCHS: dict[str, object] = {m.ARCH_ID: m for m in (stablelm_3b, granite_3_8b)}
+ARCHS: dict[str, object] = {m.ARCH_ID: m for m in (stablelm_3b, granite_3_8b, rwkv6_7b)}
 ARCH_IDS: list[str] = list(ARCHS.keys())
 
 

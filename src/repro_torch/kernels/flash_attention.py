@@ -6,9 +6,9 @@ one function on the (B·H, S, D) layout, query head ``i`` reading kv head
 ``i // group``:
 
 * ``flash_attention_cuda`` launches the hand-written CUDA C++ kernel in
-  ``csrc/flash_attention.cu``. The source is compiled with ``nvcc`` for
-  ``sm_90a`` into ``build/kernels/`` at first use and loaded with
-  ``ctypes``. It counts its launches in ``launches``.
+  ``csrc/flash_attention.cu``, built by ``kernels.build`` (``nvcc`` for
+  ``sm_90a`` into ``build/kernels/`` at first use, loaded with
+  ``ctypes``). It counts its launches in ``launches``.
 * ``flash_attention_plain`` is the plain-torch twin with the numerics of
   the Pallas body: an online softmax over kv blocks with a float32
   running max, denominator and accumulator; masked scores set to -1e30
@@ -22,24 +22,17 @@ reference's chunked path, which takes any S.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from dataclasses import dataclass
 from pathlib import Path
 
 import torch
+
+from .build import KernelBuild
+from .build import build as build_kernel
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # Kernel launches since the last reset; callers set it to 0 to count a run.
@@ -92,45 +85,23 @@ def flash_attention_plain(
 # ---------------------------------------------------------------------------
 
 
-@dataclass(frozen=True)
-class KernelBuild:
-    lib: ctypes.CDLL
-    path: Path
-    command: tuple[str, ...] | None  # None when an earlier build was reused
-    log: str  # nvcc's output, with ptxas' registers, shared memory, spills
-
-
 _build: KernelBuild | None = None
 
 
 def build() -> KernelBuild:
     """Compile the kernel (once per source and flags) and load it."""
     global _build
-    if _build is not None:
-        return _build
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = BUILD_DIR / f"flash_attention-{tag}.so"
-    command, log = None, ""
-    if not path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-        command = (nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE))
-        res = subprocess.run(command, capture_output=True, text=True)
-        log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n{log}")
-        os.replace(tmp, path)  # atomic: a concurrent build sees all or nothing
-    lib = ctypes.CDLL(str(path))
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v o
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh s d group
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal window scale dtype
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
-    _build = KernelBuild(lib, path, command, log)
+    if _build is None:
+        kb = build_kernel("flash_attention", SOURCE)
+        fn = kb.lib.flash_attention_fwd
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v o
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh s d group
+            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal window scale dtype
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        _build = kb
     return _build
 
 

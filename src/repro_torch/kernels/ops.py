@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as fa
+from . import rwkv6 as wkv
 
 
 def flash_attention(
@@ -33,3 +34,29 @@ def flash_attention(
             qf, kf, vf, group=group, causal=causal, window=window, block_k=block_k
         )
     return out.reshape(b, h, s, d).transpose(1, 2)
+
+
+def rwkv6_chunked(
+    r: torch.Tensor,  # (B, T, H, K) float32
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, T, H, V)
+    logw: torch.Tensor,  # (B, T, H, K)
+    u: torch.Tensor,  # (H, K)
+    s0: torch.Tensor,  # (B, H, K, V)
+    chunk: int = 32,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns out (B, T, H, V) in r's dtype and the final state
+    (B, H, K, V) in float32."""
+    b, t, h, dk = r.shape
+    dv = v.shape[-1]
+
+    def flat(x: torch.Tensor) -> torch.Tensor:
+        return x.transpose(1, 2).reshape(b * h, t, x.shape[-1])
+
+    uf = u[None].expand(b, h, dk).reshape(b * h, 1, dk)
+    args = (flat(r), flat(k), flat(v), flat(logw), uf, s0.reshape(b * h, dk, dv).float())
+    if r.is_cuda:
+        out, s_final = wkv.rwkv6_cuda(*args, chunk=chunk)
+    else:
+        out, s_final = wkv.rwkv6_plain(*args, chunk=chunk)
+    return out.reshape(b, h, t, dv).transpose(1, 2), s_final.reshape(b, h, dk, dv)

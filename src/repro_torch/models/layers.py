@@ -29,6 +29,20 @@ def layer_norm(
     return out.to(dtype)
 
 
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm over the channel dim (RWKV time-mix output).
+
+    x: (..., H, D); scale/bias: (H*D,). Returns (..., H*D) in x's dtype.
+    """
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = ((x - mu) * torch.rsqrt(var + eps)).flatten(-2)
+    return (out * scale.float() + bias.float()).to(dtype)
+
+
 def apply_norm(x: torch.Tensor, params: dict, kind: str, eps: float) -> torch.Tensor:
     if kind == "layernorm":
         return layer_norm(x, params["scale"], params["bias"], eps)

@@ -1,8 +1,9 @@
-"""Model assembly, dense branch: forward, prefill and decode.
+"""Model assembly: forward, prefill and decode.
 
-Port of the reference's ``models/model.py`` for dense decoder-only
-architectures (stablelm, granite): a group of one ``[attn + mlp]`` block,
-tiled ``num_layers`` times. Parameters keep the reference's stacked
+Port of the reference's ``models/model.py`` for the ported layouts: dense
+decoder-only models (stablelm, granite), a group of one ``[attn + mlp]``
+block, and RWKV-6, a group of one ``[time-mix + channel-mix]`` block;
+each tiled ``num_layers`` times. Parameters keep the reference's stacked
 ``(num_groups, ...)`` leaves so converted weights map one to one; the
 groups run in a Python loop.
 """
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..tree import map_leaves
 from . import attention as attn
+from . import rwkv as rwkv_mod
 from .layers import activate, apply_norm
 
 # ---------------------------------------------------------------------------
@@ -26,8 +28,8 @@ from .layers import activate, apply_norm
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str  # attn (the only mixer ported so far)
-    mlp: str  # dense
+    mixer: str  # attn | rwkv (the mixers ported so far)
+    mlp: str  # dense | rwkv_cm
 
 
 @dataclass(frozen=True)
@@ -41,13 +43,17 @@ class Layout:
 
 
 def decoder_layout(cfg: ModelConfig) -> Layout:
-    """Dense case of the reference's layout; other families are not ported."""
+    """The dense and RWKV cases of the reference's layout; other families
+    are not ported."""
+    if cfg.family == "ssm":
+        return Layout((BlockDef("rwkv", "rwkv_cm"),), cfg.num_layers)
     if (
-        cfg.family == "ssm" or cfg.hybrid_period > 0 or cfg.cross_attn_every > 0
+        cfg.hybrid_period > 0 or cfg.cross_attn_every > 0
         or cfg.attention == "mla" or cfg.moe.num_experts > 0 or cfg.is_encdec
         or cfg.dense_prefix_layers > 0 or cfg.mtp_depth > 0
     ):
-        raise NotImplementedError(f"{cfg.name}: only the dense branch is ported to repro_torch")
+        raise NotImplementedError(
+            f"{cfg.name}: only the dense and RWKV-6 branches are ported to repro_torch")
     return Layout((BlockDef("attn", "dense"),), cfg.num_layers)
 
 
@@ -67,15 +73,25 @@ def _mlp_fwd(mlp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return attn.matmul_promote(activate(gate, up, cfg.activation), mlp["w_out"])
 
 
-def _block_fwd(bp: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
-               return_cache: bool):
-    """Pre-norm residual block. Returns (x, cache or None)."""
+def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, return_cache: bool):
+    """Pre-norm residual block. Returns (x, cache or None); the cache holds
+    the mixer's leaves and, for the channel mix, ``{"cm": ...}``."""
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
-    res = attn.attn_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
+    if bdef.mixer == "attn":
+        res = attn.attn_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
+    else:
+        res = rwkv_mod.rwkv_time_mix_fwd(bp["mixer"], h, cfg, return_cache=return_cache)
     out, cache = res if return_cache else (res, None)
     x = x + out
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
-    return x + _mlp_fwd(bp["mlp"], h, cfg), cache
+    if bdef.mlp == "dense":
+        return x + _mlp_fwd(bp["mlp"], h, cfg), cache
+    res = rwkv_mod.rwkv_channel_mix_fwd(bp["mlp"], h, cfg, return_cache=return_cache)
+    if not return_cache:
+        return x + res, None
+    out, cm = res
+    return x + out, dict(cache, cm=cm)
 
 
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -101,32 +117,42 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool =
     for g in range(layout.num_groups):
         gparams = map_leaves(lambda p: p[g], params["groups"])
         gcache = {}
-        for i in range(len(layout.group)):
-            x, c = _block_fwd(gparams[f"b{i}"], x, cfg, positions, return_cache)
+        for i, bdef in enumerate(layout.group):
+            x, c = _block_fwd(bdef, gparams[f"b{i}"], x, cfg, positions, return_cache)
             gcache[f"b{i}"] = c
         caches.append(gcache)
     logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
     out = (logits, _zero_aux(x.device))
     if return_cache:
-        stacked = {
-            b: {n: torch.stack([c[b][n] for c in caches]) for n in caches[0][b]}
-            for b in caches[0]
-        }
+        stacked = map_leaves(lambda *leaves: torch.stack(leaves), *caches)
         out += ({"layers": stacked, "memory": None},)
     return out
 
 
+_SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 2
+
+
 def pad_cache(cache: dict, cfg: ModelConfig, max_len: int) -> dict:
-    """Grow the stacked (groups, B, S, KV, D) K/V leaves to the decode
-    cache length; ring buffers (SWA) never grow past the window."""
+    """Grow the sequence-indexed leaves, stacked (groups, B, S, ...), to the
+    decode cache length. State leaves (RWKV's ``wkv`` and ``x_prev``) are
+    left as they are; ring buffers (SWA) never grow past the window."""
     target = attn.cache_len(cfg, max_len)
-    layers = {}
-    for b, leaves in cache["layers"].items():
-        layers[b] = {}
-        for n, val in leaves.items():
-            s = val.shape[2]
-            layers[b][n] = F.pad(val, (0, 0, 0, 0, 0, target - s)) if s < target else val
-    return dict(cache, layers=layers)
+
+    def walk(tree: dict) -> dict:
+        out = {}
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                out[key] = walk(val)
+            elif key in _SEQ_CACHE_KEYS and val.ndim >= 3:
+                tgt = target if key in ("k", "v") else max_len
+                s = val.shape[2]
+                pad = [0, 0] * (val.ndim - 3) + [0, tgt - s]
+                out[key] = F.pad(val, pad) if s < tgt else val
+            else:
+                out[key] = val
+        return out
+
+    return dict(cache, layers=walk(cache["layers"]))
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = None):
@@ -142,22 +168,36 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
 # ---------------------------------------------------------------------------
 
 
+def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: int,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One token through one block. ``cache`` holds views of this layer's
+    slice of the stacked cache; every mixer writes into them in place."""
+    h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
+    if bdef.mixer == "attn":
+        out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos, cfg)
+    else:
+        out, _ = rwkv_mod.rwkv_time_mix_decode(
+            bp["mixer"], h, {"wkv": cache["wkv"], "x_prev": cache["x_prev"]}, cfg)
+    x = x + out
+    h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
+    if bdef.mlp == "dense":
+        return x + _mlp_fwd(bp["mlp"], h, cfg)
+    out, _ = rwkv_mod.rwkv_channel_mix_decode(bp["mlp"], h, cache["cm"], cfg)
+    return x + out
+
+
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos: int):
     """One token for the whole batch. tokens: (B, 1). Returns (logits, cache).
 
-    The cache's K/V leaves are updated in place: each group's slice is a
-    view of the stacked leaf, and ``attn_decode`` writes into it.
+    The cache is updated in place: each group's slice is a view of the
+    stacked leaves, and the mixers write into it.
     """
     layout = decoder_layout(cfg)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
     for g in range(layout.num_groups):
         gparams = map_leaves(lambda p: p[g], params["groups"])
-        for i in range(len(layout.group)):
-            bp, lc = gparams[f"b{i}"], cache["layers"][f"b{i}"]
-            h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
-            out, _ = attn.attn_decode(bp["mixer"], h, {"k": lc["k"][g], "v": lc["v"][g]}, pos, cfg)
-            x = x + out
-            h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
-            x = x + _mlp_fwd(bp["mlp"], h, cfg)
+        for i, bdef in enumerate(layout.group):
+            lcache = map_leaves(lambda c: c[g], cache["layers"][f"b{i}"])
+            x = _block_decode(bdef, gparams[f"b{i}"], x, lcache, pos, cfg)
     logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
     return logits, cache

@@ -1,22 +1,22 @@
-"""Parameter specs and initialisation (dense branch).
+"""Parameter specs and initialisation (dense and RWKV-6 branches).
 
 Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
-(``models/sharding.py``) and of the spec functions of ``models/model.py``
-and ``models/attention.py``. The shape tree equals the reference's
-``model_spec(cfg)`` for the ported architectures.
+(``models/sharding.py``) and of the spec functions of ``models/model.py``,
+``models/attention.py`` and ``models/rwkv.py``. The shape tree equals the
+reference's ``model_spec(cfg)`` for the ported architectures.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..tree import leaves_with_names, map_leaves
-from .model import decoder_layout
+from .model import BlockDef, decoder_layout
 
 
 @dataclass
@@ -25,8 +25,11 @@ class ParamLeaf:
 
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]
-    init: str = "normal"  # normal | zeros | ones | embed
+    init: str = "normal"  # normal | zeros | ones | embed | custom
     scale: float | None = None  # overrides the default fan-in scaling
+    # Builds one layer's value from the generator (on the generator's
+    # device); stacked leaves call it once per layer and stack the results.
+    custom: Callable[[torch.Generator], torch.Tensor] | None = None
 
     def __post_init__(self) -> None:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
@@ -54,9 +57,10 @@ def init_params(spec: Any, generator: torch.Generator, dtype: torch.dtype,
 
     Leaves are drawn in the reference's flatten order (sorted keys) from
     ``generator``, which must live on ``device``. Init rules are the
-    reference's: zeros, ones, ``embed`` (normal * 0.02) and a fan-in scaled
-    normal whose fan-in is the product of all dims but the last — the
-    stacked layer axis included, exactly as the reference computes it.
+    reference's: a ``custom`` function (tiled over the stacked layer axes),
+    zeros, ones, ``embed`` (normal * 0.02) and a fan-in scaled normal whose
+    fan-in is the product of all dims but the last — the stacked layer axis
+    included, exactly as the reference computes it.
     """
     dev = resolve_device(device)
 
@@ -70,6 +74,18 @@ def init_params(spec: Any, generator: torch.Generator, dtype: torch.dtype,
 
 def _init_leaf(leaf: ParamLeaf, gen: torch.Generator, dtype: torch.dtype,
                device: torch.device) -> torch.Tensor:
+    if leaf.custom is not None:
+        base = leaf.custom(gen)
+        if base.shape != leaf.shape:  # tile over the stacked leading axes
+            stack_dims = leaf.shape[: len(leaf.shape) - base.ndim]
+            if leaf.shape != stack_dims + tuple(base.shape):
+                raise ValueError(f"custom init gave {tuple(base.shape)} for {leaf.shape}")
+            n = 1
+            for d in stack_dims:
+                n *= d
+            base = torch.stack([base] + [leaf.custom(gen) for _ in range(n - 1)])
+            base = base.reshape(leaf.shape)
+        return base.to(device=device, dtype=dtype)
     if leaf.init == "zeros":
         return torch.zeros(leaf.shape, dtype=dtype, device=device)
     if leaf.init == "ones":
@@ -134,11 +150,57 @@ def _mlp_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-def _block_spec(cfg: ModelConfig) -> dict:
+def rwkv_time_mix_spec(cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    lw = cfg.rwkv.decay_lora
+    lm = cfg.rwkv.mix_lora
+
+    def w0_init(gen: torch.Generator) -> torch.Tensor:
+        # decay spread across channels (rwkv reference: -6..~0 pre-exp)
+        ratio = torch.arange(d, dtype=torch.float32, device=gen.device) / max(d - 1, 1)
+        return -6.0 + 5.0 * ratio**0.9
+
+    return {
+        "mu_x": ParamLeaf((d,), ("embed",), init="zeros"),
+        "mu": ParamLeaf((5, d), (None, "embed"), init="zeros"),
+        "mix_a": ParamLeaf((d, 5 * lm), ("embed", "lora"), scale=0.02),
+        "mix_b": ParamLeaf((5, lm, d), (None, "lora", "embed"), scale=0.02),
+        "w0": ParamLeaf((d,), ("embed",), custom=w0_init),
+        "w_a": ParamLeaf((d, lw), ("embed", "lora"), scale=0.02),
+        "w_b": ParamLeaf((lw, d), ("lora", "embed"), scale=0.02),
+        "u": ParamLeaf((d,), ("embed",), init="zeros"),
+        "wr": ParamLeaf((d, d), ("embed", "inner")),
+        "wk": ParamLeaf((d, d), ("embed", "inner")),
+        "wv": ParamLeaf((d, d), ("embed", "inner")),
+        "wg": ParamLeaf((d, d), ("embed", "inner")),
+        "wo": ParamLeaf((d, d), ("inner", "embed")),
+        "ln_x": {
+            "scale": ParamLeaf((d,), ("embed",), init="ones"),
+            "bias": ParamLeaf((d,), ("embed",), init="zeros"),
+        },
+    }
+
+
+def rwkv_channel_mix_spec(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    return {
+        "mu_k": ParamLeaf((d,), ("embed",), init="zeros"),
+        "mu_r": ParamLeaf((d,), ("embed",), init="zeros"),
+        "wk": ParamLeaf((d, f), ("embed", "ffn")),
+        "wv": ParamLeaf((f, d), ("ffn", "embed")),
+        "wr": ParamLeaf((d, d), ("embed", "inner")),
+    }
+
+
+_MIXER_SPECS = {"attn": attn_spec, "rwkv": rwkv_time_mix_spec}
+_MLP_SPECS = {"dense": _mlp_spec, "rwkv_cm": rwkv_channel_mix_spec}
+
+
+def _block_spec(bdef: BlockDef, cfg: ModelConfig) -> dict:
     return {
         "norm1": _norm_spec(cfg),
-        "mixer": attn_spec(cfg),
-        "mlp": _mlp_spec(cfg),
+        "mixer": _MIXER_SPECS[bdef.mixer](cfg),
+        "mlp": _MLP_SPECS[bdef.mlp](cfg),
         "norm2": _norm_spec(cfg),
     }
 
@@ -148,7 +210,7 @@ def model_spec(cfg: ModelConfig) -> dict:
     spec: dict[str, Any] = {
         "embed": ParamLeaf((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed"),
         "groups": stack_spec(
-            {f"b{i}": _block_spec(cfg) for i in range(len(layout.group))}, layout.num_groups
+            {f"b{i}": _block_spec(b, cfg) for i, b in enumerate(layout.group)}, layout.num_groups
         ),
         "norm_f": _norm_spec(cfg),
     }

@@ -29,10 +29,14 @@ def leaves_with_names(tree: Any, is_leaf: Callable[[Any], bool] | None = None) -
     return out
 
 
-def map_leaves(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """Apply ``fn`` to every non-dict leaf, keeping the dict structure."""
+def map_leaves(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` to every non-dict leaf, keeping the dict structure.
+
+    With more trees of the same structure, ``fn`` takes the leaves at one
+    path from each, as ``jax.tree.map`` does.
+    """
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: map_leaves(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    return fn(tree, *rest)
