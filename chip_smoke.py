@@ -7,17 +7,20 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which exits non-zero when it fails:
   1. the card: name and power limit;
-  2. the build: ``nvcc`` compiles both kernels (flash attention, RWKV-6
-     WKV) for sm_90a from the checkout's sources, in parallel, and prints
-     their registers, shared memory and spills;
+  2. the build: ``nvcc`` compiles the three kernels (flash attention,
+     RWKV-6 WKV, Mamba selective scan) for sm_90a from the checkout's
+     sources, in parallel, and prints their registers, shared memory and
+     spills;
   3. each kernel against its plain-torch twin on the card, case by case;
-  4. the slices: stablelm-3b and rwkv6-7b, each at full width and depth
-     in bf16 with seeded random weights, answer 8 requests in batches of
-     4 through the batch handler; with every launch count set to 0 just
-     before, each slice's kernel must launch once per layer per prefill
-     (and no other kernel at all), and greedy output must repeat exactly;
-  5. granite and rwkv6 (smoke, f32) on the card (kernels) against the CPU
-     (plain twins) on the same weights: logits and greedy tokens;
+  4. the slices: stablelm-3b and rwkv6-7b at full width and depth, and
+     jamba-1.5-large without experts at full width and 16 layers, each in
+     bf16 with seeded random weights, answer 8 requests in batches of 4
+     through the batch handler; with every launch count set to 0 just
+     before, each kernel must launch exactly as often per prefill as the
+     slice's layout says (and a kernel it does not name, never), and
+     greedy output must repeat exactly;
+  5. granite, rwkv6 and jamba (smoke, f32) on the card (kernels) against
+     the CPU (plain twins) on the same weights: logits and greedy tokens;
   6. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape beside the
      card's bound.
@@ -54,6 +57,7 @@ FLASH_CASES = [
     (2, 512, 32, 8, 128, 0, 128, torch.bfloat16, 3e-2, 3e-2, "granite GQA group 4, D=128"),
     (4, 300, 32, 32, 80, 0, 128, torch.bfloat16, 3e-2, 3e-2, "stablelm serving S=300 (ragged)"),
     (4, 200, 32, 32, 80, 0, 128, torch.bfloat16, 3e-2, 3e-2, "stablelm serving S=200 (ragged)"),
+    (4, 300, 64, 8, 128, 0, 128, torch.bfloat16, 3e-2, 3e-2, "jamba GQA group 8, D=128"),
 ]
 PROMPT_LENS = [8, 300, 37, 129, 64, 200, 17, 150]  # batches of 4: S = 300, then 200
 NEW_TOKENS = 16
@@ -73,10 +77,31 @@ WKV_CASES = [
     (4, 300, 64, 64, 30, True, None, "rwkv6-7b width, B=4 T=300"),
 ]
 WKV_ATOL, WKV_RTOL = 1e-4, 1e-3
-# batches of 4 pad to T = 300 (WKV chunk 30), then T = 293 (prime: chunk 1)
-RWKV_PROMPT_LENS = [8, 300, 37, 129, 64, 293, 17, 150]
+# rwkv6 and jamba: batches of 4 pad to T = 300 (WKV chunk 30, scan chunk
+# 60), then T = 293 (prime: chunk 1 in both)
+PRIME_PROMPT_LENS = [8, 300, 37, 129, 64, 293, 17, 150]
 WKV_TIMING_SHAPE = (4, 2048, 64, 64, 32)  # B, T, H, K = V, chunk: rwkv6-7b prefill
 WKV_SERVING_SHAPE = (4, 293, 64, 64, 1)  # a prime-length prompt: chunk 1
+
+# (B, T, DI, N, chunk, nonzero h0, label); f32, atol 1e-4 / rtol 1e-3 as in
+# tests/test_kernels.py. The first three are that file's MAMBA_CASES. The
+# chunk tiles the plain twin; the kernel steps through time and takes none.
+MAMBA_CASES = [
+    (1, 64, 32, 4, 32, False, "reference case 1"),
+    (2, 128, 64, 8, 32, False, "reference case 2"),
+    (2, 64, 96, 16, 16, False, "reference case 3"),
+    (1, 32, 16, 4, 16, True, "nonzero h0"),
+    (2, 64, 100, 16, 16, True, "ragged DI=100"),
+    (2, 300, 512, 16, 60, True, "chunk 60, T=300"),
+    (2, 293, 512, 16, 1, True, "chunk 1, T=293"),
+    (4, 300, 16384, 16, 60, True, "jamba width, B=4 T=300"),
+]
+MAMBA_ATOL, MAMBA_RTOL = 1e-4, 1e-3
+# jamba no-moe: 14 Mamba and 2 attention layers; batches of 4 pad to
+# T = 300 (scan chunk 60), then T = 293 (prime: chunk 1)
+JAMBA_PER_PREFILL = {"mamba_scan": 14, "flash_attention": 2}
+MAMBA_TIMING_SHAPE = (4, 2048, 16384, 16, 64)  # B, T, DI, N, chunk: jamba prefill
+MAMBA_SERVING_SHAPES = {"T=300": (4, 300, 16384, 16, 60), "T=293": (4, 293, 16384, 16, 1)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -127,9 +152,10 @@ def phase_card() -> str:
 def kernel_modules() -> dict:
     """Each kernel's module, by the name the kernels line gives it."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import rwkv6 as wkv
 
-    return {"flash_attention": fa, "rwkv6_wkv": wkv}
+    return {"flash_attention": fa, "rwkv6_wkv": wkv, "mamba_scan": ms}
 
 
 def phase_build() -> None:
@@ -224,20 +250,66 @@ def phase_wkv_cases() -> float:
     return worst
 
 
-def phase_slice(arch: str, prompt_lens: list[int], kernel: str) -> tuple[int, dict]:
-    """Serve ``arch`` at full size; ``kernel`` must launch once per layer
-    per prefill of the first run, and no other kernel at all."""
+def mamba_inputs(b: int, t: int, di: int, n: int, gen: torch.Generator,
+                 nonzero_h0: bool = True) -> tuple[torch.Tensor, ...]:
+    """(dt, B, C, A, x, h0) on the card, drawn as the reference's tests
+    draw them: dt = softplus of a normal, A = -exp(0.5 * normal)."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    dt = torch.nn.functional.softplus(randn(b, t, di))
+    bm, cm = randn(b, t, n), randn(b, t, n)
+    a = -torch.exp(randn(di, n) * 0.5)
+    x = randn(b, t, di)
+    h0 = randn(b, di, n) if nonzero_h0 else torch.zeros((b, di, n), device="cuda")
+    return dt, bm, cm, a, x, h0
+
+
+def mamba_against_plain(args: tuple[torch.Tensor, ...], chunk: int) -> tuple[list[float], bool]:
+    """Kernel and plain twin on the same inputs: the max errors of y and of
+    the final state, and whether both are within the tolerance."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    y, h = ms.mamba_scan_cuda(*args)
+    ref_y, ref_h = ms.mamba_scan_plain(*args, chunk=chunk, d_block=args[0].shape[-1])
+    torch.cuda.synchronize()
+    pairs = ((y, ref_y), (h, ref_h))
+    errs = [(u - v).abs().max().item() for u, v in pairs]
+    ok = all(bool(torch.isfinite(u).all()) and torch.allclose(u, v, atol=MAMBA_ATOL, rtol=MAMBA_RTOL)
+             for u, v in pairs)
+    return errs, ok
+
+
+def phase_mamba_cases() -> float:
+    """The Mamba scan kernel against its plain twin; returns the largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    for b, t, di, n, chunk, nonzero_h0, label in MAMBA_CASES:
+        errs, ok = mamba_against_plain(mamba_inputs(b, t, di, n, gen, nonzero_h0), chunk)
+        print(f"[mamba] {label}: B={b} T={t} DI={di} N={n} chunk={chunk} f32 max_abs_err "
+              f"y {errs[0]:.3e} h {errs[1]:.3e} (atol {MAMBA_ATOL}, rtol {MAMBA_RTOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"Mamba scan kernel disagrees with its plain twin: {label}")
+        worst = max(worst, *errs)
+    return worst
+
+
+def phase_slice(arch: str, variant: str, prompt_lens: list[int],
+                per_prefill: dict[str, int]) -> tuple[dict, dict]:
+    """Serve ``arch`` at a real size; in the first run every kernel of
+    ``kernel_modules()`` must launch ``per_prefill[name]`` times per prefill
+    (0 for a kernel not named). Returns the launch counts and the stats."""
     from repro_torch.launch.serve import MemorySink, build_engine, make_requests, serve
     from repro_torch.models import count_params, model_spec
 
     tag = f"[slice {arch}]"
     mods = kernel_modules()
     t0 = time.perf_counter()
-    engine = build_engine(arch, "full", max_len=max(prompt_lens) + NEW_TOKENS, seed=0)
+    engine = build_engine(arch, variant, max_len=max(prompt_lens) + NEW_TOKENS, seed=0)
     cfg = engine.cfg
     torch.cuda.synchronize()
-    print(f"{tag} full: {cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads x {cfg.d_model // cfg.num_heads}, d_ff {cfg.d_ff}, "
+    print(f"{tag} {variant}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads x {cfg.head_dim}, d_ff {cfg.d_ff}, "
           f"vocab {cfg.vocab_size}, {count_params(model_spec(cfg))} params in "
           f"{cfg.param_dtype}, built in {time.perf_counter() - t0:.1f} s")
     requests = make_requests(prompt_lens, cfg.vocab_size, NEW_TOKENS, seed=1)
@@ -253,14 +325,12 @@ def phase_slice(arch: str, prompt_lens: list[int], kernel: str) -> tuple[int, di
         seconds = serve(engine, requests, 4, sink)
         if run == 0:
             counts = {name: mod.launches for name, mod in mods.items()}
-            launches = counts[kernel]
             prefills = engine.stats["batches"] - batches_before
+            want = {name: per_prefill.get(name, 0) * prefills for name in mods}
             print(f"{tag} kernel launches {counts} over {prefills} prefills "
-                  f"({cfg.num_layers} layers)")
-            check(launches == cfg.num_layers * prefills,
-                  f"{kernel} launched {launches} times, want {cfg.num_layers} per prefill")
-            check(all(n == 0 for name, n in counts.items() if name != kernel),
-                  f"another kernel launched on the {arch} path: {counts}")
+                  f"({cfg.num_layers} layers; want {want})")
+            check(prefills > 0 and counts == want,
+                  f"kernel launches {counts} on the {arch} path, want {want}")
         outs = [sink.tokens("serve", r["request_id"]) for r in requests]
         for o in outs:
             check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
@@ -279,7 +349,7 @@ def phase_slice(arch: str, prompt_lens: list[int], kernel: str) -> tuple[int, di
     stats.update(breakdown(engine, requests[:4], tag))
     del engine
     torch.cuda.empty_cache()
-    return launches, stats
+    return counts, stats
 
 
 def breakdown(engine, requests: list[dict], tag: str) -> dict:
@@ -322,66 +392,59 @@ def breakdown(engine, requests: list[dict], tag: str) -> dict:
         return {"prefill_s": prefill_s, "decode_step_s": decode_step_s}
     print(f"{tag} profiled batch: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, "
           f"idle share {1 - busy_s / wall_s:.4f} (profiler overhead included)")
-    for name, count, us in kernels[:8]:
+    ours = [r for r in kernels[8:] if "_fwd_kernel" in r[0]]  # the port's kernels, if not on top
+    for name, count, us in kernels[:8] + ours:
         print(f"{tag}   {us / 1e3:10.3f} ms {count:6d}x {us / 1e6 / busy_s:7.2%} {name[:90]}")
     return {"prefill_s": prefill_s, "decode_step_s": decode_step_s,
             "profiled_wall_s": wall_s, "profiled_busy_s": busy_s}
 
 
-def phase_cross_device() -> None:
-    from repro_torch.configs import get_config
-    from repro_torch.models import forward, init_params, model_spec
-    from repro_torch.serve.engine import ServeEngine
-
-    cfg = get_config("granite-3-8b", "smoke").copy(
-        param_dtype="float32", compute_dtype="float32", use_pallas=True)
-    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (2, 72), generator=torch.Generator().manual_seed(1))
-    on_cpu = ServeEngine(cfg, params, max_len=96, device="cpu")
-    on_gpu = ServeEngine(cfg, params, max_len=96, device="cuda")
-    with torch.inference_mode():
-        lc, _ = forward(on_cpu.params, cfg, {"tokens": tokens})
-        lg, _ = forward(on_gpu.params, cfg, {"tokens": tokens.cuda()})
-    err = (lg.cpu() - lc).abs().max().item()
-    ok = torch.allclose(lg.cpu(), lc, atol=5e-3, rtol=1e-3)
-    print(f"[cross] granite smoke f32, S=72: logits cuda vs cpu max_abs_err={err:.3e} "
-          f"(atol 5e-3, rtol 1e-3) {'ok' if ok else 'FAIL'}")
-    check(ok, "granite logits differ between the card and the CPU")
-    tc = on_cpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
-    tg = on_gpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
-    print(f"[cross] greedy tokens identical: {(tc == tg).all()}")
-    check((tc == tg).all(), "greedy tokens differ between the card and the CPU")
-
-
-def phase_cross_device_rwkv() -> None:
-    from repro_torch.configs import get_config
-    from repro_torch.models import forward, init_params, model_spec
-    from repro_torch.serve.engine import ServeEngine
-
-    cfg = get_config("rwkv6-7b", "smoke").copy(
-        param_dtype="float32", compute_dtype="float32", use_pallas=True)
-    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
-    # u, mu and mu_x init to zeros; seeded values exercise the bonus and the mixes
-    gen = torch.Generator().manual_seed(4)
+def reseed_rwkv(params: dict, gen: torch.Generator) -> None:
+    """u, mu and mu_x init to zeros; seeded values exercise the bonus and
+    the mixes."""
     mixer = params["groups"]["b0"]["mixer"]
     mixer["u"] = torch.randn(mixer["u"].shape, generator=gen) * 0.5
     for name in ("mu", "mu_x"):
         mixer[name] = torch.rand(mixer[name].shape, generator=gen)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 72), generator=torch.Generator().manual_seed(1))
-    on_cpu = ServeEngine(cfg, params, max_len=96, device="cpu")
-    on_gpu = ServeEngine(cfg, params, max_len=96, device="cuda")
+
+
+def reseed_jamba(params: dict, gen: torch.Generator) -> None:
+    """conv_b and d_skip init to zeros and ones; seeded values exercise the
+    conv bias and the skip scale of every Mamba block."""
+    for block in params["groups"].values():
+        mixer = block["mixer"]
+        if "conv_b" in mixer:
+            mixer["conv_b"] = torch.randn(mixer["conv_b"].shape, generator=gen) * 0.5
+            mixer["d_skip"] = torch.rand(mixer["d_skip"].shape, generator=gen) + 0.5
+
+
+def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> None:
+    """A smoke config in f32 on the card (kernels) against the CPU (plain
+    twins), on the same weights: logits and greedy tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward, init_params, model_spec
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch, variant).copy(
+        param_dtype="float32", compute_dtype="float32", use_pallas=True)
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    if reseed is not None:
+        reseed(params, torch.Generator().manual_seed(4))
+    tokens = torch.randint(0, cfg.vocab_size, (2, t), generator=torch.Generator().manual_seed(1))
+    on_cpu = ServeEngine(cfg, params, max_len=t + 24, device="cpu")
+    on_gpu = ServeEngine(cfg, params, max_len=t + 24, device="cuda")
     with torch.inference_mode():
         lc, _ = forward(on_cpu.params, cfg, {"tokens": tokens})
         lg, _ = forward(on_gpu.params, cfg, {"tokens": tokens.cuda()})
     err = (lg.cpu() - lc).abs().max().item()
     ok = torch.allclose(lg.cpu(), lc, atol=5e-3, rtol=1e-3)
-    print(f"[cross] rwkv6 smoke f32, T=72 (chunk 24): logits cuda vs cpu max_abs_err={err:.3e} "
+    print(f"[cross] {arch} {variant} f32, T={t}: logits cuda vs cpu max_abs_err={err:.3e} "
           f"(atol 5e-3, rtol 1e-3) {'ok' if ok else 'FAIL'}")
-    check(ok, "rwkv6 logits differ between the card and the CPU")
+    check(ok, f"{arch} logits differ between the card and the CPU")
     tc = on_cpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
     tg = on_gpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
-    print(f"[cross] rwkv6 greedy tokens identical: {(tc == tg).all()}")
-    check((tc == tg).all(), "rwkv6 greedy tokens differ between the card and the CPU")
+    print(f"[cross] {arch} greedy tokens identical: {(tc == tg).all()}")
+    check((tc == tg).all(), f"{arch} greedy tokens differ between the card and the CPU")
 
 
 def wkv_bound(bh: int, t: int, dk: int, dv: int, chunk: int) -> tuple[float, int, float, int]:
@@ -444,6 +507,53 @@ def phase_wkv_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     }, rows["prime prompt"]
 
 
+def mamba_bound(b: int, t: int, di: int, n: int) -> tuple[float, int, float, int, int]:
+    """(ms, operations, ms, bytes, exponentials) of the scan: the least time
+    for about 7 float32 operations per (b, t, d, n) (multiply, exp,
+    multiply, multiply-add into h, multiply-add into y) at the float32 peak
+    outside the tensor cores, and for the bytes (each input read once, each
+    output written once) at the memory rate."""
+    ops = 7 * b * t * di * n
+    nbytes = 4 * (3 * b * t * di + 2 * b * t * n + di * n + 2 * b * di * n)
+    return ops / PEAK_F32_FLOPS * 1e3, ops, nbytes / PEAK_BYTES_S * 1e3, nbytes, b * t * di * n
+
+
+def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
+    from repro_torch.kernels import mamba_scan as ms
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+    for label, (b, t, di, n, chunk) in (("prefill", MAMBA_TIMING_SHAPE), *MAMBA_SERVING_SHAPES.items()):
+        args = mamba_inputs(b, t, di, n, gen, nonzero_h0=False)
+        errs, ok = mamba_against_plain(args, chunk)
+        check(ok, f"Mamba timing shape {label} disagrees: {errs}")
+        kernel_ms = cuda_ms(lambda: ms.mamba_scan_cuda(*args), 3, 20)
+        plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args, chunk=chunk, d_block=512), 1, 2)
+        t_ops, ops, t_bytes, nbytes, exps = mamba_bound(b, t, di, n)
+        print(f"[time] Mamba {label}: B={b} T={t} DI={di} N={n} chunk={chunk} f32: kernel "
+              f"{kernel_ms:.4f} ms ({kernel_ms / t * 1e3:.3f} us per step), plain "
+              f"{plain_ms:.4f} ms, no library call; bound {max(t_ops, t_bytes):.4f} ms "
+              f"({ops} ops -> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms); "
+              f"{exps} exponentials; max_abs_err {max(errs):.3e}")
+        rows[label] = {"shape": [b, t, di, n, chunk], "ms": kernel_ms, "plain_ms": plain_ms,
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": max(errs)}
+    main = rows.pop("prefill")
+    return {
+        "name": "mamba_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:24",
+        "launches": launches,
+        "max_abs_err": max(worst_err, main["err"], *(r["err"] for r in rows.values())),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": None,  # no PyTorch call computes the selective scan
+    }, rows
+
+
 def phase_timing(worst_err: float, launches: int) -> dict:
     from repro_torch.kernels import flash_attention as fa
 
@@ -492,16 +602,27 @@ def main() -> int:
     phase_build()
     worst_err = phase_kernel_cases()
     worst_wkv = phase_wkv_cases()
-    launches, stats = phase_slice("stablelm-3b", PROMPT_LENS, "flash_attention")
-    wkv_launches, rwkv_stats = phase_slice("rwkv6-7b", RWKV_PROMPT_LENS, "rwkv6_wkv")
-    phase_cross_device()
-    phase_cross_device_rwkv()
-    kernels = [phase_timing(worst_err, launches)]
-    wkv_row, prime = phase_wkv_timing(worst_wkv, wkv_launches)
-    kernels.append(wkv_row)
+    worst_mamba = phase_mamba_cases()
+    stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32})
+    rwkv_counts, rwkv_stats = phase_slice("rwkv6-7b", "full", PRIME_PROMPT_LENS, {"rwkv6_wkv": 32})
+    jamba_counts, jamba_stats = phase_slice("jamba-1.5-large-398b", "no-moe", PRIME_PROMPT_LENS,
+                                            JAMBA_PER_PREFILL)
+    phase_cross_device("granite-3-8b", "smoke", 72)
+    phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
+    phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
+    paths = {"stablelm-3b": stablelm_counts, "rwkv6-7b": rwkv_counts,
+             "jamba-1.5-large-398b": jamba_counts}
+    launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
+    print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)}")
+    kernels = [phase_timing(worst_err, launches["flash_attention"])]
+    wkv_row, prime = phase_wkv_timing(worst_wkv, launches["rwkv6_wkv"])
+    mamba_row, serving = phase_mamba_timing(worst_mamba, launches["mamba_scan"])
+    kernels += [wkv_row, mamba_row]
     print(f"[done] {time.perf_counter() - t0:.1f} s; serving stablelm-3b {json.dumps(stats)}")
     print(f"[done] serving rwkv6-7b {json.dumps(rwkv_stats)}; WKV at a prime prompt "
           f"{json.dumps(prime)}")
+    print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "
+          f"serving shapes {json.dumps(serving)}")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import flash_attention as fa
+from . import mamba_scan as ms
 from . import rwkv6 as wkv
 
 
@@ -60,3 +61,27 @@ def rwkv6_chunked(
     else:
         out, s_final = wkv.rwkv6_plain(*args, chunk=chunk)
     return out.reshape(b, h, t, dv).transpose(1, 2), s_final.reshape(b, h, dk, dv)
+
+
+def mamba_chunk_scan(
+    dt: torch.Tensor,  # (B, T, DI) float32
+    bmat: torch.Tensor,  # (B, T, N)
+    cmat: torch.Tensor,
+    a: torch.Tensor,  # (DI, N)
+    x: torch.Tensor,  # (B, T, DI)
+    h0: torch.Tensor,  # (B, DI, N)
+    chunk: int = 64,
+    d_block: int = 512,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns y (B, T, DI) and the final state (B, DI, N), both float32.
+    The kernel steps through time, so ``chunk`` and ``d_block`` only tile
+    the plain twin; there ``d_block`` shrinks until it divides DI, as the
+    reference's does."""
+    args = (dt, bmat, cmat, a, x.float(), h0)
+    if dt.is_cuda:
+        return ms.mamba_scan_cuda(*args)
+    di = dt.shape[-1]
+    d_block = min(d_block, di)
+    while di % d_block:
+        d_block -= 1
+    return ms.mamba_scan_plain(*args, chunk=chunk, d_block=d_block)

@@ -3,6 +3,7 @@ answers a request load through the generator batch handler, publishing
 each result into an in-memory sink.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --variant full --requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --variant no-moe
 
 Weights are random, drawn from ``--seed``. The broker wiring (a torch
 executor registered with a Colonies server) is not ported yet.
@@ -78,7 +79,8 @@ def serve(engine: ServeEngine, requests: list[dict], batch_size: int, sink,
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b")
-    ap.add_argument("--variant", default="full", choices=("full", "smoke"))
+    ap.add_argument("--variant", default="full",
+                    help="full | smoke | an arch's own variant (jamba: no-moe, smoke-no-moe)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)

@@ -53,6 +53,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``. torch's ``F.softplus``
+    returns x itself above 20, which differs by up to 2e-9 in float32."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu defaults to the tanh approximation; torch defaults to erf.
     return F.gelu(x, approximate="tanh")

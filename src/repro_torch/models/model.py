@@ -2,10 +2,13 @@
 
 Port of the reference's ``models/model.py`` for the ported layouts: dense
 decoder-only models (stablelm, granite), a group of one ``[attn + mlp]``
-block, and RWKV-6, a group of one ``[time-mix + channel-mix]`` block;
-each tiled ``num_layers`` times. Parameters keep the reference's stacked
-``(num_groups, ...)`` leaves so converted weights map one to one; the
-groups run in a Python loop.
+block; RWKV-6, a group of one ``[time-mix + channel-mix]`` block, each
+tiled ``num_layers`` times; and the jamba hybrid without experts, a group
+of ``hybrid_period`` blocks (attention at ``hybrid_attn_index``, Mamba
+elsewhere, each with a dense MLP) tiled ``num_layers / hybrid_period``
+times. Parameters keep the reference's stacked ``(num_groups, ...)``
+leaves so converted weights map one to one; the groups run in a Python
+loop.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from ..configs.base import ModelConfig
 from ..tree import map_leaves
 from . import attention as attn
 from . import rwkv as rwkv_mod
+from . import ssm as ssm_mod
 from .layers import activate, apply_norm
 
 # ---------------------------------------------------------------------------
@@ -28,7 +32,7 @@ from .layers import activate, apply_norm
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str  # attn | rwkv (the mixers ported so far)
+    mixer: str  # attn | rwkv | mamba (the mixers ported so far)
     mlp: str  # dense | rwkv_cm
 
 
@@ -43,17 +47,27 @@ class Layout:
 
 
 def decoder_layout(cfg: ModelConfig) -> Layout:
-    """The dense and RWKV cases of the reference's layout; other families
-    are not ported."""
+    """The dense, RWKV and jamba (without experts) cases of the reference's
+    layout; other families are not ported."""
     if cfg.family == "ssm":
         return Layout((BlockDef("rwkv", "rwkv_cm"),), cfg.num_layers)
+    if cfg.hybrid_period > 0:  # jamba
+        if cfg.moe.num_experts > 0:
+            raise NotImplementedError(
+                f"{cfg.name}: MoE is not ported to repro_torch; serve the variant without "
+                f"experts (--variant no-moe)")
+        blocks = tuple(
+            BlockDef("attn" if i == cfg.hybrid_attn_index else "mamba", "dense")
+            for i in range(cfg.hybrid_period)
+        )
+        return Layout(blocks, cfg.num_layers // cfg.hybrid_period)
     if (
-        cfg.hybrid_period > 0 or cfg.cross_attn_every > 0
-        or cfg.attention == "mla" or cfg.moe.num_experts > 0 or cfg.is_encdec
-        or cfg.dense_prefix_layers > 0 or cfg.mtp_depth > 0
+        cfg.cross_attn_every > 0 or cfg.attention == "mla" or cfg.moe.num_experts > 0
+        or cfg.is_encdec or cfg.dense_prefix_layers > 0 or cfg.mtp_depth > 0
     ):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and RWKV-6 branches are ported to repro_torch")
+            f"{cfg.name}: only the dense, RWKV-6 and jamba (no-moe) branches are ported "
+            f"to repro_torch")
     return Layout((BlockDef("attn", "dense"),), cfg.num_layers)
 
 
@@ -80,13 +94,19 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
     if bdef.mixer == "attn":
         res = attn.attn_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
-    else:
+    elif bdef.mixer == "rwkv":
         res = rwkv_mod.rwkv_time_mix_fwd(bp["mixer"], h, cfg, return_cache=return_cache)
+    elif bdef.mixer == "mamba":
+        res = ssm_mod.mamba_fwd(bp["mixer"], h, cfg, return_cache=return_cache)
+    else:
+        raise ValueError(bdef.mixer)
     out, cache = res if return_cache else (res, None)
     x = x + out
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
     if bdef.mlp == "dense":
         return x + _mlp_fwd(bp["mlp"], h, cfg), cache
+    if bdef.mlp != "rwkv_cm":
+        raise ValueError(bdef.mlp)
     res = rwkv_mod.rwkv_channel_mix_fwd(bp["mlp"], h, cfg, return_cache=return_cache)
     if not return_cache:
         return x + res, None
@@ -134,8 +154,9 @@ _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 
 
 def pad_cache(cache: dict, cfg: ModelConfig, max_len: int) -> dict:
     """Grow the sequence-indexed leaves, stacked (groups, B, S, ...), to the
-    decode cache length. State leaves (RWKV's ``wkv`` and ``x_prev``) are
-    left as they are; ring buffers (SWA) never grow past the window."""
+    decode cache length. State leaves (RWKV's ``wkv`` and ``x_prev``,
+    Mamba's ``h`` and ``conv``) are left as they are; ring buffers (SWA)
+    never grow past the window."""
     target = attn.cache_len(cfg, max_len)
 
     def walk(tree: dict) -> dict:
@@ -175,13 +196,19 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
     if bdef.mixer == "attn":
         out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos, cfg)
-    else:
+    elif bdef.mixer == "rwkv":
         out, _ = rwkv_mod.rwkv_time_mix_decode(
             bp["mixer"], h, {"wkv": cache["wkv"], "x_prev": cache["x_prev"]}, cfg)
+    elif bdef.mixer == "mamba":
+        out, _ = ssm_mod.mamba_decode(bp["mixer"], h, {"h": cache["h"], "conv": cache["conv"]}, cfg)
+    else:
+        raise ValueError(bdef.mixer)
     x = x + out
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
     if bdef.mlp == "dense":
         return x + _mlp_fwd(bp["mlp"], h, cfg)
+    if bdef.mlp != "rwkv_cm":
+        raise ValueError(bdef.mlp)
     out, _ = rwkv_mod.rwkv_channel_mix_decode(bp["mlp"], h, cache["cm"], cfg)
     return x + out
 

@@ -1,13 +1,14 @@
-"""Parameter specs and initialisation (dense and RWKV-6 branches).
+"""Parameter specs and initialisation (dense, RWKV-6 and jamba branches).
 
 Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
 (``models/sharding.py``) and of the spec functions of ``models/model.py``,
-``models/attention.py`` and ``models/rwkv.py``. The shape tree equals the
+``models/attention.py``, ``models/rwkv.py`` and ``models/ssm.py``. The shape tree equals the
 reference's ``model_spec(cfg)`` for the ported architectures.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Any, Callable
 
@@ -17,6 +18,7 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..tree import leaves_with_names, map_leaves
 from .model import BlockDef, decoder_layout
+from .ssm import d_inner
 
 
 @dataclass
@@ -192,7 +194,37 @@ def rwkv_channel_mix_spec(cfg: ModelConfig) -> dict:
     }
 
 
-_MIXER_SPECS = {"attn": attn_spec, "rwkv": rwkv_time_mix_spec}
+def mamba_spec(cfg: ModelConfig) -> dict:
+    d, di = cfg.d_model, d_inner(cfg)
+    n, r, cw = cfg.mamba.state_dim, cfg.mamba.dt_rank, cfg.mamba.conv_width
+
+    def a_log_init(gen: torch.Generator) -> torch.Tensor:
+        a = torch.arange(1, n + 1, dtype=torch.float32, device=gen.device)[None, :].repeat(di, 1)
+        return torch.log(a)
+
+    def dt_bias_init(gen: torch.Generator) -> torch.Tensor:
+        # dt in [1e-3, 1e-1] after softplus (mamba reference init)
+        u = torch.rand((di,), generator=gen, dtype=torch.float32, device=gen.device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))
+
+    return {
+        "in_proj": ParamLeaf((d, 2 * di), ("embed", "inner")),
+        "conv_w": ParamLeaf((cw, di), ("conv", "inner"), scale=(1.0 / cw) ** 0.5),
+        "conv_b": ParamLeaf((di,), ("inner",), init="zeros"),
+        "x_proj": ParamLeaf((di, r + 2 * n), ("inner", "dt_rank")),
+        "dt_w": ParamLeaf((r, di), ("dt_rank", "inner"), scale=r**-0.5),
+        "dt_b": ParamLeaf((di,), ("inner",), custom=dt_bias_init),
+        "a_log": ParamLeaf((di, n), ("inner", "state"), custom=a_log_init),
+        "d_skip": ParamLeaf((di,), ("inner",), init="ones"),
+        "out_proj": ParamLeaf((di, d), ("inner", "embed")),
+        "dt_norm": {"scale": ParamLeaf((r,), ("dt_rank",), init="ones")},
+        "b_norm": {"scale": ParamLeaf((n,), ("state",), init="ones")},
+        "c_norm": {"scale": ParamLeaf((n,), ("state",), init="ones")},
+    }
+
+
+_MIXER_SPECS = {"attn": attn_spec, "rwkv": rwkv_time_mix_spec, "mamba": mamba_spec}
 _MLP_SPECS = {"dense": _mlp_spec, "rwkv_cm": rwkv_channel_mix_spec}
 
 

@@ -1,7 +1,7 @@
 """The shared kernel build (``repro_torch.kernels.build``): library
 naming, the atomic rename, the kept log and reuse, with a stand-in for
-``nvcc`` on the CPU; both kernels bound through it; and, on a card
-(``-m cuda``), both kernels built from the sources and launched once."""
+``nvcc`` on the CPU; every kernel bound through it; and, on a card
+(``-m cuda``), the kernels built from the sources and launched once."""
 
 import hashlib
 import os
@@ -17,6 +17,7 @@ import torch
 import _ctypes
 from repro_torch.kernels import build as kbuild
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6 as wkv
 
@@ -80,6 +81,7 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
 @pytest.mark.parametrize("module,name,symbol,nargs", [
     (fa, "flash_attention", "flash_attention_fwd", 13),
     (wkv, "rwkv6", "rwkv6_wkv_fwd", 14),
+    (ms, "mamba_scan", "mamba_scan_fwd", 13),
 ])
 def test_kernels_bind_through_the_shared_build(module, name, symbol, nargs, monkeypatch):
     calls = []
@@ -111,3 +113,4 @@ def test_both_kernels_build_and_launch_on_the_card():
     np.testing.assert_allclose(got.cpu().numpy(), ops.flash_attention(q, k, v).numpy(),
                                atol=2e-5, rtol=1e-4)
     assert fa.build().path.parent == wkv.build().path.parent == kbuild.BUILD_DIR
+    assert ms.build().path.parent == kbuild.BUILD_DIR
