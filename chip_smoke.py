@@ -22,8 +22,8 @@ Phases, each of which exits non-zero when it fails:
   5. granite, rwkv6 and jamba (smoke, f32) on the card (kernels) against
      the CPU (plain twins) on the same weights: logits and greedy tokens;
   6. each kernel, its plain twin and, where there is one, a PyTorch call
-     computing the same function, timed at a prefill shape beside the
-     card's bound.
+     computing the same function, timed at a prefill shape and at the
+     serving shapes beside the card's bound.
 The last line is the JSON result; the line before it lists the kernels,
 and the one before that names the card.
 """
@@ -58,13 +58,27 @@ FLASH_CASES = [
     (4, 300, 32, 32, 80, 0, 128, torch.bfloat16, 3e-2, 3e-2, "stablelm serving S=300 (ragged)"),
     (4, 200, 32, 32, 80, 0, 128, torch.bfloat16, 3e-2, 3e-2, "stablelm serving S=200 (ragged)"),
     (4, 300, 64, 8, 128, 0, 128, torch.bfloat16, 3e-2, 3e-2, "jamba GQA group 8, D=128"),
+    (2, 128, 4, 2, 16, 0, 64, torch.bfloat16, 3e-2, 3e-2, "bf16 D=16"),
+    (2, 256, 8, 2, 64, 0, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 D=64"),
+    (1, 200, 8, 4, 72, 0, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 D=72 (padded to 80), ragged"),
+    (2, 128, 4, 2, 32, 48, 32, torch.bfloat16, 3e-2, 3e-2, "bf16 sliding window 48"),
+    (1, 300, 16, 2, 128, 100, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 window 100, GQA group 8"),
+    (1, 77, 4, 1, 20, 0, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 D=20 (plain loads), ragged"),
+]
+# (S, D, dtype, atol, rtol): bidirectional, ragged S, GQA group 2
+BIDIR_CASES = [
+    (200, 32, torch.float32, 2e-5, 1e-4),
+    (300, 80, torch.bfloat16, 3e-2, 3e-2),
+    (200, 128, torch.bfloat16, 3e-2, 3e-2),
 ]
 PROMPT_LENS = [8, 300, 37, 129, 64, 200, 17, 150]  # batches of 4: S = 300, then 200
 NEW_TOKENS = 16
-TIMING_SHAPE = (4, 2048, 32, 80)  # B, S, H (= KV), D: stablelm prefill
+TIMING_SHAPE = (4, 2048, 32, 32, 80)  # B, S, H, KV, D: stablelm prefill
+FLASH_SERVING_SHAPES = {"stablelm S=300": (4, 300, 32, 32, 80), "jamba S=300": (4, 300, 64, 8, 128)}
 
 # (B, T, H, K = V, chunk, nonzero s0, constant logw or None, label); f32,
-# atol 1e-4 / rtol 1e-3 as in tests/test_kernels.py
+# atol 1e-4 / rtol 1e-3 as in tests/test_kernels.py. The chunk tiles the
+# plain twin; the kernel tiles time with its own.
 WKV_CASES = [
     (1, 32, 2, 8, 16, False, None, "reference case 1"),
     (2, 64, 3, 16, 16, False, None, "reference case 2"),
@@ -75,6 +89,8 @@ WKV_CASES = [
     (2, 200, 4, 64, 25, True, None, "chunk 25"),
     (2, 293, 4, 64, 1, True, None, "chunk 1, T=293"),
     (4, 300, 64, 64, 30, True, None, "rwkv6-7b width, B=4 T=300"),
+    (2, 293, 4, 64, 1, False, -30.0, "logw = -30, chunk 1, T=293"),
+    (2, 45, 2, 6, 5, True, None, "K=V=6 (4-byte copies)"),
 ]
 WKV_ATOL, WKV_RTOL = 1e-4, 1e-3
 # rwkv6 and jamba: batches of 4 pad to T = 300 (WKV chunk 30, scan chunk
@@ -134,6 +150,27 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time per call: the device time of the kernels ``fn``
+    launches under the profiler, summed, over the calls the profiler
+    recorded (the most launches of any one kernel, at most ``iters``).
+    Unlike ``cuda_ms`` it leaves out any gap between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = max((e.count for e in events), default=0)
+    check(0 < calls <= iters, f"the profiler recorded {calls} launches of {iters} calls")
+    if calls < iters:
+        print(f"[time] the profiler recorded {calls} of {iters} calls")
+    return sum(e.self_device_time_total for e in events) / calls / 1e3
 
 
 def phase_card() -> str:
@@ -198,13 +235,17 @@ def phase_kernel_cases() -> float:
         check(ok, f"kernel disagrees with its plain twin: {label}")
         if dtype == torch.bfloat16 and h == 32:
             worst_bf16 = max(worst_bf16, err)
-    # bidirectional (causal=False) on a ragged S
-    q, k, v = (torch.randn((1, 200, 4, 32), generator=gen, device="cuda") for _ in range(3))
-    out = ops.flash_attention(q, k[:, :, :2], v[:, :, :2], causal=False)
-    ref = plain_bshd(q, k[:, :, :2], v[:, :, :2], False, 0, 128)
-    err = (out - ref).abs().max().item()
-    print(f"[kernel] bidirectional S=200 f32 max_abs_err={err:.3e}")
-    check(torch.allclose(out, ref, atol=2e-5, rtol=1e-4), "bidirectional case disagrees")
+    for s, d, dtype, atol, rtol in BIDIR_CASES:
+        q, k, v = (torch.randn((1, s, 4, d), generator=gen, device="cuda").to(dtype) for _ in range(3))
+        out = ops.flash_attention(q, k[:, :, :2], v[:, :, :2], causal=False)
+        ref = plain_bshd(q, k[:, :, :2], v[:, :, :2], False, 0, 128)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
+            out.float(), ref.float(), atol=atol, rtol=rtol)
+        print(f"[kernel] bidirectional S={s} D={d} GQA group 2 {str(dtype).split('.')[-1]} "
+              f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"bidirectional case S={s} D={d} {dtype} disagrees")
     return worst_bf16
 
 
@@ -234,7 +275,7 @@ def phase_wkv_cases() -> float:
     worst = 0.0
     for b, t, h, k, chunk, nonzero_s0, logw, label in WKV_CASES:
         args = wkv_inputs(b, t, h, k, gen, nonzero_s0, logw)
-        out, s_final = wkv.rwkv6_cuda(*args, chunk=chunk)
+        out, s_final = wkv.rwkv6_cuda(*args)
         ref_out, ref_s = wkv.rwkv6_plain(*args, chunk=chunk)
         torch.cuda.synchronize()
         check(out.shape == (b * h, t, k) and s_final.shape == (b * h, k, k),
@@ -392,7 +433,8 @@ def breakdown(engine, requests: list[dict], tag: str) -> dict:
         return {"prefill_s": prefill_s, "decode_step_s": decode_step_s}
     print(f"{tag} profiled batch: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, "
           f"idle share {1 - busy_s / wall_s:.4f} (profiler overhead included)")
-    ours = [r for r in kernels[8:] if "_fwd_kernel" in r[0]]  # the port's kernels, if not on top
+    port = ("flash_fwd_", "wkv6_fwd_kernel", "mamba_scan_fwd_kernel")  # the port's kernels
+    ours = [r for r in kernels[8:] if any(name in r[0] for name in port)]  # if not on top
     for name, count, us in kernels[:8] + ours:
         print(f"{tag}   {us / 1e3:10.3f} ms {count:6d}x {us / 1e6 / busy_s:7.2%} {name[:90]}")
     return {"prefill_s": prefill_s, "decode_step_s": decode_step_s,
@@ -475,20 +517,24 @@ def phase_wkv_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     for label, (b, t, h, k, chunk) in (("prefill", WKV_TIMING_SHAPE),
                                         ("prime prompt", WKV_SERVING_SHAPE)):
         args = wkv_inputs(b, t, h, k, gen)
-        out, s_final = wkv.rwkv6_cuda(*args, chunk=chunk)
+        out, s_final = wkv.rwkv6_cuda(*args)
         ref_out, ref_s = wkv.rwkv6_plain(*args, chunk=chunk)
         err = max((out - ref_out).abs().max().item(), (s_final - ref_s).abs().max().item())
         check(torch.allclose(out, ref_out, atol=WKV_ATOL, rtol=WKV_RTOL)
               and torch.allclose(s_final, ref_s, atol=WKV_ATOL, rtol=WKV_RTOL),
               f"WKV timing shape {label} disagrees: {err}")
-        kernel_ms = cuda_ms(lambda: wkv.rwkv6_cuda(*args, chunk=chunk), 3, 20)
+        kernel_ms = cuda_ms(lambda: wkv.rwkv6_cuda(*args), 3, 20)
+        kernel_dev = device_ms(lambda: wkv.rwkv6_cuda(*args), 20)
         plain_ms = cuda_ms(lambda: wkv.rwkv6_plain(*args, chunk=chunk), 1, 3)
         t_ops, ops, t_bytes, nbytes = wkv_bound(b * h, t, k, k, chunk)
         print(f"[time] WKV {label}: B={b} T={t} H={h} K=V={k} chunk={chunk} f32: kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, no library call; bound "
+              f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms, {kernel_dev / t * 1e3:.3f} us "
+              f"per step), plain "
+              f"{plain_ms:.4f} ms, no library call; bound "
               f"{max(t_ops, t_bytes):.4f} ms ({ops} ops -> {t_ops:.4f} ms, {nbytes} bytes -> "
               f"{t_bytes:.4f} ms); max_abs_err {err:.3e}")
-        rows[label] = {"shape": [b, t, h, k, chunk], "ms": kernel_ms, "plain_ms": plain_ms,
+        rows[label] = {"shape": [b, t, h, k, chunk], "ms": kernel_ms, "device_ms": kernel_dev,
+                       "plain_ms": plain_ms, "us_per_step": kernel_dev / t * 1e3,
                        "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": err}
     main = rows["prefill"]
@@ -554,43 +600,69 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     }, rows
 
 
-def phase_timing(worst_err: float, launches: int) -> dict:
+def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
+                     plain_iters: int) -> dict:
+    """B1 in bf16, causal, at ``shape`` = (B, S, H, KV, D) on the kernel's
+    (B*H, S, D) layout: kernel, plain twin and SDPA (the same function on
+    (B, H, S, D), GQA by ``enable_gqa``), beside the bound. Kernel and SDPA
+    are timed twice: by CUDA events over back-to-back calls, and by their
+    device time alone."""
     from repro_torch.kernels import flash_attention as fa
 
-    b, s, h, d = TIMING_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-               for _ in range(3))
-    out = fa.flash_attention_cuda(q, k, v, group=1, causal=True)
-    ref = fa.flash_attention_plain(q, k, v, group=1, causal=True)
+    b, s, h, kv, d = shape
+    q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b * kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    group = h // kv
+    out = fa.flash_attention_cuda(q, k, v, group=group, causal=True)
+    ref = fa.flash_attention_plain(q, k, v, group=group, causal=True)
     err = (out.float() - ref.float()).abs().max().item()
     check(torch.allclose(out.float(), ref.float(), atol=3e-2, rtol=3e-2),
-          f"timing shape disagrees: {err}")
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, group=1, causal=True), 3, 20)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, group=1, causal=True), 1, 5)
-    q4, k4, v4 = (t.view(b, h, s, d) for t in (q, k, v))
-    library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 3, 20)
+          f"flash timing shape {label} disagrees: {err}")
+    kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 3, 20)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, group=group, causal=True), 1,
+                       plain_iters)
+    q4, k4, v4 = q.view(b, h, s, d), k.view(b, kv, s, d), v.view(b, kv, s, d)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=group > 1)
+
+    library_ms = cuda_ms(sdpa, 3, 20)
+    kernel_dev = device_ms(lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 50)
+    library_dev = device_ms(sdpa, 50)
     flops = 4 * b * h * d * s * (s + 1) / 2  # q.k and p.v over the causal pairs
-    nbytes = 4 * b * s * h * d * 2  # q, k, v read once and o written once, bf16
+    nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
-    print(f"[time] B={b} S={s} H={h} D={d} bf16 causal: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms; bound {max(t_ops, t_bytes):.4f} ms "
+    print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 causal: kernel "
+          f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+          f"{library_ms:.4f} ms (device {library_dev:.4f} ms); bound {max(t_ops, t_bytes):.4f} ms "
           f"({flops:.4g} ops -> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms); "
-          f"max_abs_err {err:.3e}")
+          f"{flops / kernel_dev / 1e9:.1f} TFLOP/s on the device; max_abs_err {err:.3e}")
+    return {"shape": list(shape), "ms": kernel_ms, "device_ms": kernel_dev, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library_device_ms": library_dev,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": err}
+
+
+def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    main = flash_timing_row("prefill", TIMING_SHAPE, gen, 5)
+    serving = {label: flash_timing_row(label, shape, gen, 20)
+               for label, shape in FLASH_SERVING_SHAPES.items()}
     return {
         "name": "flash_attention",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:32",
         "launches": launches,
-        "max_abs_err": max(worst_err, err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }
+        "max_abs_err": max(worst_err, main["err"], *(r["err"] for r in serving.values())),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+    }, serving
 
 
 def main() -> int:
@@ -614,11 +686,13 @@ def main() -> int:
              "jamba-1.5-large-398b": jamba_counts}
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)}")
-    kernels = [phase_timing(worst_err, launches["flash_attention"])]
+    flash_row, flash_serving = phase_timing(worst_err, launches["flash_attention"])
+    kernels = [flash_row]
     wkv_row, prime = phase_wkv_timing(worst_wkv, launches["rwkv6_wkv"])
     mamba_row, serving = phase_mamba_timing(worst_mamba, launches["mamba_scan"])
     kernels += [wkv_row, mamba_row]
-    print(f"[done] {time.perf_counter() - t0:.1f} s; serving stablelm-3b {json.dumps(stats)}")
+    print(f"[done] {time.perf_counter() - t0:.1f} s; serving stablelm-3b {json.dumps(stats)}; "
+          f"flash attention at serving shapes {json.dumps(flash_serving)}")
     print(f"[done] serving rwkv6-7b {json.dumps(rwkv_stats)}; WKV at a prime prompt "
           f"{json.dumps(prime)}")
     print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "

@@ -2,9 +2,10 @@
 
 Each kernel is one ``.cu`` file under ``csrc/`` with a plain C interface.
 ``build`` compiles it with ``nvcc`` for ``sm_90a`` into a shared library
-under ``build/kernels/`` (named by a hash of the source and the flags, so
-a changed source builds anew) and loads it with ``ctypes``. Nothing is
-compiled when a module is imported: the first launch builds.
+under ``build/kernels/`` (named by a hash of the source, the local headers
+it includes and the flags, so a changed source or header builds anew) and
+loads it with ``ctypes``. Nothing is compiled when a module is imported:
+the first launch builds.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from dataclasses import dataclass
@@ -32,9 +34,28 @@ class KernelBuild:
     log: str  # nvcc's output, with ptxas' registers, shared memory, spills
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_includes(source: Path) -> list[Path]:
+    """The files ``source`` includes with ``#include "..."``, transitively,
+    resolved beside the including file, in first-seen order."""
+    seen: list[Path] = []
+    todo = [source]
+    while todo:
+        including = todo.pop(0)
+        for name in _LOCAL_INCLUDE.findall(including.read_bytes()):
+            path = (including.parent / name.decode()).resolve()
+            if path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return seen
+
+
 def library_path(name: str, source: Path, flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
     """Where the library of ``source`` built with ``flags`` lives."""
-    tag = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    data = source.read_bytes() + b"".join(p.read_bytes() for p in local_includes(source))
+    tag = hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
 

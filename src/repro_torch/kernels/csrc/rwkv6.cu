@@ -12,162 +12,304 @@
 //   S'     = diag(exp(cum[C-1])) S + sum_s (k[s] * exp(cum[C-1] - cum[s])) v[s]^T.
 // Everything is float32; the final state is returned beside the output.
 //
+// The kernel's own chunk. The result does not depend on the chunk apart from
+// rounding, so the kernel tiles time by CH = 16 steps whatever chunk the
+// caller's reference rule picked (a prime T gives chunk 1 there). The ragged
+// last chunk is padded with r = k = v = 0 and logw = 0: those steps leave the
+// state unchanged, and their outputs are not stored. A smaller chunk needs
+// fewer pairwise exponentials per step ((C-1)/2 * K) at the same state work
+// (2 * K * V FMAs per step); 16 keeps the barriers per step low.
+//
 // What bounds it on an H100. Each input is read once and each output
 // written once: at B=4, T=2048, H=64, K=V=64 that is ~680 MB (~0.20 ms at
-// 3.35 TB/s) against ~1.3e10 float32 operations (~0.19 ms at 67 TFLOP/s
-// without tensor cores), so bytes and operations bound it about equally.
-// Neither is what limits this first design: the chunks of one row run in
-// order, and each chunk waits on its loads and five block barriers.
+// 3.35 TB/s) against ~1.1e10 float32 operations (~0.16 ms at 67 TFLOP/s
+// without tensor cores). The state products rule out TF32 (the bar is atol
+// 1e-4), so the work runs on the CUDA cores; what limits it in practice is
+// the shared-memory instruction rate and the chunks of one row running in
+// order.
 //
-// Design (simple and right first; pipelining the loads and tensor cores
-// are for a later change):
+// Design:
 //   * one block of 256 threads per (b*h) row; the TPU grid's sequential
-//     chunk axis becomes a loop inside the block, with the K x V float32
-//     state in shared memory for the whole sequence;
-//   * per chunk, r, k, logw and v are staged in shared memory; one thread
-//     per channel takes the prefix sums of logw;
-//   * the pairwise decay exp(cum_prev[t,k] - cum[s,k]) is computed on the
-//     fly inside the score sum, so the (C, C, K) ratio tensor (256 KB at
-//     C=32, K=64, more than a block's 227 KB) never exists;
-//   * rows of the (C, K) tiles have an odd stride (K | 1), so the 32
-//     threads of a warp that read 32 different rows hit 32 banks;
-//   * about 77 KB of dynamic shared memory at C=32, K=V=64: two blocks per
-//     SM, and the 256 rows of the B=4, H=64 case fit in one wave.
+//     chunk axis is a loop inside the block;
+//   * r, k, logw, v of the next chunk are staged by cp.async into a second
+//     buffer while this chunk computes: one 16-byte piece per thread and
+//     array at an offset fixed by the thread's index (4-byte copies where K
+//     or V is not a multiple of 4); rows past T are zero-filled by the copies;
+//   * the K x V state lives in registers for the whole sequence: thread
+//     (g, j) owns S[16g .. 16g+15][j]; the cross-chunk output and the state
+//     update read r*exp(cum_prev) and k*exp(cum_C - cum) from shared memory
+//     as float4 broadcasts, 16 FMAs per four loads;
+//   * phase 1 (one pass): prefix sums of logw by shuffles across 16 lanes (a
+//     lane per step, 4 channels per lane), r*exp(cum_prev), k*exp(cum_C -
+//     cum), exp(cum_C) and the bonus diagonal, one part per warp; phase 2:
+//     the pairwise scores (thread (t, s) sums channels 0..31 of pair (t, s)
+//     for s < t and channels 32..63 of pair (s, t) for s > t; thread (t, t)
+//     sums the bonus parts), the cross-chunk term and the state update;
+//     phase 3: the in-chunk term, the sum of the four cross-term parts, and
+//     the store. Three barriers per chunk;
+//   * exponentials by ex2.approx on arguments scaled by log2(e) (a few ulp,
+//     far inside 1e-4), always of a difference in log space: exp(cum_prev[t]
+//     - cum[s]) is never split into two factors;
+//   * rows of the (C, 64) tiles have a stride of 68 floats, so the 16 rows a
+//     warp reads as float4 fall in disjoint bank groups per 128 bytes;
+//   * K and V up to 64: narrower heads are zero-padded in shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_DIM = 64;    // largest K and V
-constexpr int MAX_CHUNK = 32;  // largest chunk
+constexpr int MAX_DIM = 64;     // largest K and V
+constexpr int CH = 16;          // the kernel's chunk
+constexpr int RS = MAX_DIM + 4; // row stride of the (CH, 64) tiles, floats
+constexpr int KG = 4;           // channel groups of the state, 16 channels each
+constexpr int WARPS = THREADS / 32;
+constexpr float LOG2E = 1.4426950408889634f;
 
-size_t smem_floats(int chunk, int dk, int dv) {
-  const int ks = dk | 1;
-  return (size_t)6 * chunk * ks + (size_t)chunk * dv + (size_t)chunk * chunk +
-         (size_t)dk * dv + 2 * (size_t)dk;
+struct Smem {
+  float stage[2][4][CH * RS];  // r, k, logw, v of two chunks
+  float cum[CH * RS];          // cum
+  float cprev[CH * RS];        // cum_prev
+  float rw[CH * RS];           // r * exp(cum_prev)
+  float kt[CH * RS];           // k * exp(cum_C - cum)
+  float part[KG][CH][MAX_DIM]; // cross-chunk output, one part per channel group
+  float p[CH * CH];            // score halves: p[t][s] and p[s][t] sum to A[t][s]
+  float diag[WARPS][CH];       // bonus diagonal, one part per warp
+  float decay[MAX_DIM];        // exp(cum_C)
+  float u[MAX_DIM];
+};
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Stage steps [t0, t0 + CH) of r, k, logw (K wide) and v (V wide) into
+// buffer buf, columns [0, K) and [0, V); rows past T are zero-filled. With
+// vec (K and V multiples of 4, 16-byte aligned rows), a (CH, 64) tile is 256
+// pieces of 16 bytes, one per thread: thread i copies row i / 16, columns
+// 4 * (i % 16) .. +3 of each array. Otherwise 4-byte copies.
+__device__ __forceinline__ void stage_chunk(Smem& sm, int buf, const float* __restrict__ r,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ w,
+                                            const float* __restrict__ v, int t0, int t_len,
+                                            int dk, int dv, bool vec) {
+  static_assert(CH * MAX_DIM / 4 == THREADS, "one 16-byte piece per thread and array");
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float* src = a == 0 ? r : a == 1 ? k : a == 2 ? w : v;
+    const int d = a == 3 ? dv : dk;
+    float* dst = sm.stage[buf][a];
+    const float* chunk = src + (size_t)t0 * d;
+    if (vec) {
+      const int t = threadIdx.x >> 4;
+      const int c = (threadIdx.x & 15) << 2;
+      if (c < d) {
+        const bool ok = t0 + t < t_len;
+        ptx::cp_async_16(dst + t * RS + c, ok ? chunk + t * d + c : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < CH * d; i += THREADS) {
+        const int t = i / d;
+        const int c = i - t * d;
+        const bool ok = t0 + t < t_len;
+        ptx::cp_async_4(dst + t * RS + c, ok ? chunk + t * d + c : src, ok ? 4 : 0);
+      }
+    }
+  }
+  ptx::cp_async_commit();
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 wkv6_fwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ logw,
                 const float* __restrict__ u, const float* __restrict__ s0,
                 float* __restrict__ out, float* __restrict__ s_final, int t_len, int dk,
-                int dv, int chunk) {
-  extern __shared__ float smem[];
-  const int ks = dk | 1;  // odd row stride of the (C, K) tiles
-  float* sr = smem;               // r                       C x ks
-  float* sk = sr + chunk * ks;    // k                       C x ks
-  float* scp = sk + chunk * ks;   // logw, then cum_prev     C x ks
-  float* scum = scp + chunk * ks; // cum                     C x ks
-  float* srw = scum + chunk * ks; // r * exp(cum_prev)       C x ks
-  float* skt = srw + chunk * ks;  // k * exp(cum_C - cum)    C x ks
-  float* sv = skt + chunk * ks;   // v                       C x dv
-  float* sa = sv + chunk * dv;    // scores A                C x C
-  float* ss = sa + chunk * chunk; // state S                 dk x dv
-  float* su = ss + dk * dv;       // u                       dk
-  float* sdecay = su + dk;        // exp(cum_C)              dk
+                int dv, int vec) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
   const size_t row = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
   const float* rb = r + row * t_len * dk;
   const float* kb = k + row * t_len * dk;
   const float* wb = logw + row * t_len * dk;
   const float* vb = v + row * t_len * dv;
   float* ob = out + row * t_len * dv;
 
-  for (int i = tid; i < dk * dv; i += THREADS) ss[i] = s0[row * dk * dv + i];
-  for (int i = tid; i < dk; i += THREADS) su[i] = u[row * dk + i];
+  // Zero both staging buffers once: the copies never write the columns past
+  // K or V, which must read as r = k = v = logw = 0.
+  float* stage = &sm.stage[0][0][0];
+  for (int i = tid; i < 2 * 4 * CH * RS; i += THREADS) stage[i] = 0.f;
+  for (int i = tid; i < MAX_DIM; i += THREADS) sm.u[i] = i < dk ? u[row * dk + i] : 0.f;
 
-  for (int t0 = 0; t0 < t_len; t0 += chunk) {
-    // 1. Stage the chunk (the barrier that ends the previous chunk orders
-    //    these writes after its reads).
-    for (int i = tid; i < chunk * dk; i += THREADS) {
-      const int t = i / dk, c = i - t * dk;
-      const size_t g = (size_t)(t0 + t) * dk + c;
-      sr[t * ks + c] = rb[g];
-      sk[t * ks + c] = kb[g];
-      scp[t * ks + c] = wb[g];
-    }
-    for (int i = tid; i < chunk * dv; i += THREADS) sv[i] = vb[(size_t)t0 * dv + i];
-    __syncthreads();
+  // This thread's column of the state: S[kb0 + i][j], i < 16.
+  const int g = tid >> 6;
+  const int j = tid & 63;
+  const int kb0 = g * 16;
+  float st[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    st[i] = (kb0 + i < dk && j < dv) ? s0[row * dk * dv + (size_t)(kb0 + i) * dv + j] : 0.f;
+  __syncthreads();
 
-    // 2. Prefix sums of logw, one thread per channel.
-    for (int c = tid; c < dk; c += THREADS) {
-      float run = 0.f;
-      for (int t = 0; t < chunk; ++t) {
-        const float lw = scp[t * ks + c];
-        run += lw;
-        scum[t * ks + c] = run;
-        scp[t * ks + c] = run - lw;
+  const int nchunks = (t_len + CH - 1) / CH;
+  stage_chunk(sm, 0, rb, kb, wb, vb, 0, t_len, dk, dv, vec);
+
+  for (int c = 0; c < nchunks; ++c) {
+    const int buf = c & 1;
+    const int t0 = c * CH;
+    ptx::cp_async_wait<0>();
+    __syncthreads();  // chunk c has landed; chunk c - 1's readers are done
+    if (c + 1 < nchunks) stage_chunk(sm, buf ^ 1, rb, kb, wb, vb, t0 + CH, t_len, dk, dv, vec);
+    const float* sr = sm.stage[buf][0];
+    const float* sk = sm.stage[buf][1];
+    const float* sw = sm.stage[buf][2];
+    const float* sv = sm.stage[buf][3];
+
+    // Phase 1: lane t of a 16-lane segment is step t; segment q takes
+    // channels 4q .. 4q+3.
+    {
+      const int t = tid & 15;
+      const int c4 = (tid >> 4) * 4;
+      const float4 lw = ld4(sw + t * RS + c4);
+      const float4 rr = ld4(sr + t * RS + c4);
+      const float4 kk = ld4(sk + t * RS + c4);
+      const float lwv[4] = {lw.x, lw.y, lw.z, lw.w};
+      const float rv[4] = {rr.x, rr.y, rr.z, rr.w};
+      const float kv[4] = {kk.x, kk.y, kk.z, kk.w};
+      float cs[4] = {lw.x, lw.y, lw.z, lw.w};
+#pragma unroll
+      for (int off = 1; off < CH; off <<= 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float o = __shfl_up_sync(0xffffffffu, cs[i], off, CH);
+          if (t >= off) cs[i] += o;
+        }
       }
-      sdecay[c] = expf(run);
-    }
-    __syncthreads();
-
-    // 3. Scores with the bonus on the diagonal; r and k weighted for the
-    //    cross-chunk output and the state update.
-    for (int i = tid; i < chunk * chunk; i += THREADS) {
-      const int t = i / chunk, s = i - t * chunk;
-      const float* rt = sr + t * ks;
-      float acc = 0.f;
-      if (s < t) {
-        const float* kr = sk + s * ks;
-        const float* cpt = scp + t * ks;
-        const float* cms = scum + s * ks;
-        for (int c = 0; c < dk; ++c) acc += rt[c] * kr[c] * expf(cpt[c] - cms[c]);
-      } else if (s == t) {
-        const float* kt = sk + t * ks;
-        for (int c = 0; c < dk; ++c) acc += rt[c] * su[c] * kt[c];
+      float dg = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float last = __shfl_sync(0xffffffffu, cs[i], CH - 1, CH);
+        const float cp = cs[i] - lwv[i];
+        const int at = t * RS + c4 + i;
+        sm.cum[at] = cs[i];
+        sm.cprev[at] = cp;
+        sm.rw[at] = rv[i] * ptx::ex2(cp * LOG2E);
+        sm.kt[at] = kv[i] * ptx::ex2((last - cs[i]) * LOG2E);
+        if (t == CH - 1) sm.decay[c4 + i] = ptx::ex2(last * LOG2E);
+        dg = fmaf(rv[i] * sm.u[c4 + i], kv[i], dg);
       }
-      sa[i] = acc;
-    }
-    const float* cum_last = scum + (chunk - 1) * ks;
-    for (int i = tid; i < chunk * dk; i += THREADS) {
-      const int t = i / dk, c = i - t * dk;
-      const int j = t * ks + c;
-      srw[j] = sr[j] * expf(scp[j]);
-      skt[j] = sk[j] * expf(cum_last[c] - scum[j]);
+      dg += __shfl_xor_sync(0xffffffffu, dg, 16);
+      if (lane < 16) sm.diag[tid >> 5][t] = dg;
     }
     __syncthreads();
 
-    // 4. Output: intra-chunk scores times v, plus the incoming state.
-    for (int i = tid; i < chunk * dv; i += THREADS) {
-      const int t = i / dv, j = i - t * dv;
+    // Phase 2a: half of a pairwise score. Thread (ts, ss), ts != ss, sums 32
+    // channels of the pair (max, min): the low half if ts > ss, else the high.
+    {
+      const int ts = tid >> 4;
+      const int ss = tid & 15;
+      if (ts != ss) {
+        const int ta = max(ts, ss);
+        const int sa = min(ts, ss);
+        const int c0 = ts > ss ? 0 : 32;
+        const float* rt = sr + ta * RS + c0;
+        const float* cpt = sm.cprev + ta * RS + c0;
+        const float* ks = sk + sa * RS + c0;
+        const float* cms = sm.cum + sa * RS + c0;
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < 32; q += 4) {
+          const float4 a = ld4(rt + q), b = ld4(ks + q), x = ld4(cpt + q), y = ld4(cms + q);
+          acc = fmaf(a.x * b.x, ptx::ex2((x.x - y.x) * LOG2E), acc);
+          acc = fmaf(a.y * b.y, ptx::ex2((x.y - y.y) * LOG2E), acc);
+          acc = fmaf(a.z * b.z, ptx::ex2((x.z - y.z) * LOG2E), acc);
+          acc = fmaf(a.w * b.w, ptx::ex2((x.w - y.w) * LOG2E), acc);
+        }
+        sm.p[tid] = acc;
+      } else {
+        float dg = 0.f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) dg += sm.diag[w][ts];
+        sm.p[tid] = 0.5f * dg;  // p[t][t] + p[t][t] = A[t][t] exactly
+      }
+    }
+
+    // Phase 2b: the cross-chunk term with the incoming state, then the state
+    // update, both on this thread's 16 x 1 column of S.
+#pragma unroll
+    for (int t = 0; t < CH; ++t) {
+      const float* rwt = sm.rw + t * RS + kb0;
       float acc = 0.f;
-      for (int s = 0; s <= t; ++s) acc += sa[t * chunk + s] * sv[s * dv + j];
-      const float* rwt = srw + t * ks;
-      for (int c = 0; c < dk; ++c) acc += rwt[c] * ss[c * dv + j];
-      ob[(size_t)(t0 + t) * dv + j] = acc;
+#pragma unroll
+      for (int q = 0; q < 16; q += 4) {
+        const float4 a = ld4(rwt + q);
+        acc = fmaf(a.x, st[q], acc);
+        acc = fmaf(a.y, st[q + 1], acc);
+        acc = fmaf(a.z, st[q + 2], acc);
+        acc = fmaf(a.w, st[q + 3], acc);
+      }
+      sm.part[g][t][j] = acc;
+    }
+#pragma unroll
+    for (int q = 0; q < 16; q += 4) {
+      const float4 dcy = ld4(sm.decay + kb0 + q);
+      st[q] *= dcy.x;
+      st[q + 1] *= dcy.y;
+      st[q + 2] *= dcy.z;
+      st[q + 3] *= dcy.w;
+    }
+#pragma unroll
+    for (int s = 0; s < CH; ++s) {
+      const float vs = sv[s * RS + j];
+      const float* kts = sm.kt + s * RS + kb0;
+#pragma unroll
+      for (int q = 0; q < 16; q += 4) {
+        const float4 b = ld4(kts + q);
+        st[q] = fmaf(b.x, vs, st[q]);
+        st[q + 1] = fmaf(b.y, vs, st[q + 1]);
+        st[q + 2] = fmaf(b.z, vs, st[q + 2]);
+        st[q + 3] = fmaf(b.w, vs, st[q + 3]);
+      }
     }
     __syncthreads();
 
-    // 5. State update; each thread owns its elements of S.
-    for (int i = tid; i < dk * dv; i += THREADS) {
-      const int c = i / dv, j = i - c * dv;
-      float acc = sdecay[c] * ss[i];
-      for (int s = 0; s < chunk; ++s) acc += skt[s * ks + c] * sv[s * dv + j];
-      ss[i] = acc;
+    // Phase 3: out[t][j] for four steps t of this channel group, chosen so
+    // that every group sums the same number of in-chunk terms.
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = i == 0 ? g : i == 1 ? 7 - g : i == 2 ? 8 + g : 15 - g;
+      float acc = sm.part[0][t][j] + sm.part[1][t][j] + sm.part[2][t][j] + sm.part[3][t][j];
+      for (int s = 0; s <= t; ++s)
+        acc = fmaf(sm.p[t * CH + s] + sm.p[s * CH + t], sv[s * RS + j], acc);
+      if (t0 + t < t_len && j < dv) ob[(size_t)(t0 + t) * dv + j] = acc;
     }
-    __syncthreads();
   }
 
-  for (int i = tid; i < dk * dv; i += THREADS) s_final[row * dk * dv + i] = ss[i];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    if (kb0 + i < dk && j < dv) s_final[row * dk * dv + (size_t)(kb0 + i) * dv + j] = st[i];
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 // r, k, logw: (bh, t, dk); v, out: (bh, t, dv); u: (bh, dk); s0, s_final:
-// (bh, dk, dv); all float32, contiguous, on one device. Needs dk, dv <= 64,
-// 1 <= chunk <= 32 and t % chunk == 0. Returns a cudaError_t (0 on success).
+// (bh, dk, dv); all float32, contiguous, on one device. Needs 1 <= dk, dv <=
+// 64; any t >= 1. Returns a cudaError_t (0 on success).
 extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const void* logw,
                              const void* u, const void* s0, void* out, void* s_final, int bh,
-                             int t, int dk, int dv, int chunk, void* stream) {
-  if (bh < 1 || t < 1 || dk < 1 || dk > MAX_DIM || dv < 1 || dv > MAX_DIM || chunk < 1 ||
-      chunk > MAX_CHUNK || t % chunk != 0)
+                             int t, int dk, int dv, void* stream) {
+  if (bh < 1 || t < 1 || dk < 1 || dk > MAX_DIM || dv < 1 || dv > MAX_DIM)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(chunk, dk, dv) * sizeof(float);
+  const int vec = dk % 4 == 0 && dv % 4 == 0 && aligned16(r) && aligned16(k) &&
+                  aligned16(v) && aligned16(logw);
+  const size_t smem = sizeof(Smem);
   cudaError_t err = cudaFuncSetAttribute(wkv6_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -175,6 +317,6 @@ extern "C" int rwkv6_wkv_fwd(const void* r, const void* k, const void* v, const 
       static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(logw), static_cast<const float*>(u),
       static_cast<const float*>(s0), static_cast<float*>(out), static_cast<float*>(s_final), t,
-      dk, dv, chunk);
+      dk, dv, vec);
   return (int)cudaGetLastError();
 }

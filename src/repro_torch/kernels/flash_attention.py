@@ -8,7 +8,11 @@ one function on the (B·H, S, D) layout, query head ``i`` reading kv head
 * ``flash_attention_cuda`` launches the hand-written CUDA C++ kernel in
   ``csrc/flash_attention.cu``, built by ``kernels.build`` (``nvcc`` for
   ``sm_90a`` into ``build/kernels/`` at first use, loaded with
-  ``ctypes``). It counts its launches in ``launches``.
+  ``ctypes``): for bfloat16, both products on the tensor cores
+  (``mma.sync``, probabilities rounded to bf16 before p·v, as the
+  model-level reference rounds them); for float32, scalar FMAs, since
+  TF32 cannot meet the float32 bar. It counts its launches in
+  ``launches``.
 * ``flash_attention_plain`` is the plain-torch twin with the numerics of
   the Pallas body: an online softmax over kv blocks with a float32
   running max, denominator and accumulator; masked scores set to -1e30

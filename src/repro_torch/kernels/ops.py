@@ -47,7 +47,8 @@ def rwkv6_chunked(
     chunk: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns out (B, T, H, V) in r's dtype and the final state
-    (B, H, K, V) in float32."""
+    (B, H, K, V) in float32. ``chunk`` tiles the plain twin only; the
+    kernel picks its own, which changes nothing but rounding."""
     b, t, h, dk = r.shape
     dv = v.shape[-1]
 
@@ -57,7 +58,7 @@ def rwkv6_chunked(
     uf = u[None].expand(b, h, dk).reshape(b * h, 1, dk)
     args = (flat(r), flat(k), flat(v), flat(logw), uf, s0.reshape(b * h, dk, dv).float())
     if r.is_cuda:
-        out, s_final = wkv.rwkv6_cuda(*args, chunk=chunk)
+        out, s_final = wkv.rwkv6_cuda(*args)  # tiles time with its own chunk
     else:
         out, s_final = wkv.rwkv6_plain(*args, chunk=chunk)
     return out.reshape(b, h, t, dv).transpose(1, 2), s_final.reshape(b, h, dk, dv)

@@ -6,8 +6,11 @@ on the (B·H, T, K) layout, each returning ``(out, s_final)``:
 
 * ``rwkv6_cuda`` launches the hand-written CUDA C++ kernel in
   ``csrc/rwkv6.cu``, built by ``kernels.build`` at first use. It takes
-  float32 only, K and V up to 64 and a chunk of 1 to 32 dividing T, and
-  raises on anything else. It counts its launches in ``launches``.
+  float32 only, any T, K and V up to 64, and raises on anything else. It
+  tiles time with a chunk of its own, so it takes no ``chunk``: the result
+  does not depend on the chunk apart from rounding (the log-space pairwise
+  decay keeps every exponent <= 0 at any chunk). It counts its launches in
+  ``launches``.
 * ``rwkv6_plain`` is the plain-torch twin with the Pallas body's
   numerics, chunk by chunk: the in-chunk ``cum`` and ``cum_prev``, the
   pairwise decay ``exp(cum_prev[t] - cum[s])`` for s < t, the ``u`` bonus
@@ -26,7 +29,6 @@ from .build import KernelBuild
 from .build import build as build_kernel
 
 MAX_DIM = 64
-MAX_CHUNK = 32
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6.cu"
 
@@ -87,7 +89,7 @@ def build() -> KernelBuild:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # r k v logw
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # u s0 out s_final
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh t dk dv chunk
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh t dk dv
             ctypes.c_void_p,  # stream
         ]
         fn.restype = ctypes.c_int
@@ -102,8 +104,6 @@ def rwkv6_cuda(
     logw: torch.Tensor,
     u: torch.Tensor,  # (BH, 1, K)
     s0: torch.Tensor,  # (BH, K, V)
-    *,
-    chunk: int = 32,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raise on anything it does not take."""
     global launches
@@ -119,11 +119,8 @@ def rwkv6_cuda(
     shapes = [tuple(x.shape) for x in args]
     if shapes != [(bh, t, dk), (bh, t, dk), (bh, t, dv), (bh, t, dk), (bh, 1, dk), (bh, dk, dv)]:
         raise ValueError(f"shapes {shapes} disagree with r {tuple(r.shape)}")
-    chunk = min(chunk, t)
-    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM and 1 <= chunk <= MAX_CHUNK
-            and t % chunk == 0 and bh < 2**31):
-        raise ValueError(f"unsupported K={dk} V={dv} T={t} chunk={chunk} "
-                         f"(K, V <= {MAX_DIM}; 1 <= chunk <= {MAX_CHUNK}; T % chunk == 0)")
+    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM and t >= 1 and bh < 2**31):
+        raise ValueError(f"unsupported K={dk} V={dv} T={t} (1 <= K, V <= {MAX_DIM}; T >= 1)")
     r, k, v, logw, u, s0 = (x.contiguous() for x in args)
     out = torch.empty((bh, t, dv), dtype=torch.float32, device=r.device)
     s_final = torch.empty((bh, dk, dv), dtype=torch.float32, device=r.device)
@@ -131,7 +128,7 @@ def rwkv6_cuda(
     with torch.cuda.device(r.device):
         err = fn(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(), u.data_ptr(),
-            s0.data_ptr(), out.data_ptr(), s_final.data_ptr(), bh, t, dk, dv, chunk,
+            s0.data_ptr(), out.data_ptr(), s_final.data_ptr(), bh, t, dk, dv,
             torch.cuda.current_stream(r.device).cuda_stream,
         )
     if err != 0:

@@ -50,7 +50,10 @@ def fake_nvcc(tmp_path, monkeypatch):
 
 
 def test_build_names_renames_logs_and_reuses(fake_nvcc, tmp_path):
-    tag = hashlib.sha256(fa.SOURCE.read_bytes() + " ".join(FLASH_FLAGS).encode()).hexdigest()[:16]
+    header = fa.SOURCE.parent / "ptx.cuh"  # the one local header it includes
+    assert kbuild.local_includes(fa.SOURCE) == [header]
+    data = fa.SOURCE.read_bytes() + header.read_bytes()
+    tag = hashlib.sha256(data + " ".join(FLASH_FLAGS).encode()).hexdigest()[:16]
     assert kbuild.NVCC_FLAGS == FLASH_FLAGS
     first = kbuild.build("flash_attention", fa.SOURCE)
     assert first.path == tmp_path / "kernels" / f"flash_attention-{tag}.so"
@@ -63,6 +66,24 @@ def test_build_names_renames_logs_and_reuses(fake_nvcc, tmp_path):
     assert again.command is None and again.path == first.path and again.log == first.log
     other = kbuild.build("rwkv6", wkv.SOURCE)
     assert other.path.name.startswith("rwkv6-") and other.path != first.path
+
+
+def test_editing_an_included_header_changes_the_library_path(tmp_path):
+    """The library name hashes every local ``#include "..."``, transitively,
+    so an edited header builds anew; system headers are not hashed."""
+    (tmp_path / "inc").mkdir()
+    source = tmp_path / "kernel.cu"
+    source.write_text('#include <cuda_runtime.h>\n#include "inc/a.cuh"\nint f();\n')
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "inc" / "b.cuh").write_text("// b\n")
+    assert kbuild.local_includes(source) == [tmp_path / "inc" / "a.cuh", tmp_path / "inc" / "b.cuh"]
+    first = kbuild.library_path("k", source)
+    assert kbuild.library_path("k", source) == first
+    (tmp_path / "inc" / "b.cuh").write_text("// b, edited\n")
+    second = kbuild.library_path("k", source)
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "inc" / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n// a\n')
+    assert kbuild.library_path("k", source) not in (first, second)
 
 
 def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
@@ -80,7 +101,7 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("module,name,symbol,nargs", [
     (fa, "flash_attention", "flash_attention_fwd", 13),
-    (wkv, "rwkv6", "rwkv6_wkv_fwd", 14),
+    (wkv, "rwkv6", "rwkv6_wkv_fwd", 13),
     (ms, "mamba_scan", "mamba_scan_fwd", 13),
 ])
 def test_kernels_bind_through_the_shared_build(module, name, symbol, nargs, monkeypatch):

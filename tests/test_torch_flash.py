@@ -82,6 +82,25 @@ def test_cpu_tensors_never_launch_the_kernel():
         fa.flash_attention_cuda(q.reshape(2, 64, 16), k.reshape(1, 64, 16), v.reshape(1, 64, 16), group=2)
 
 
+def _cuda_against_plain(b, s, h, kv, d, window, dtype, causal):
+    """The kernel (one launch) against the plain twin on the CPU, on the same
+    inputs in ``dtype``, at the bar of ``tests/test_kernels.py``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(b, s, h, kv, d, seed=s))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window)
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=tol, rtol=max(tol, 1e-4))
+
+
+# The float32 cases run the scalar kernel; the bfloat16 cases the
+# tensor-core kernel, at every padded head dim the serving configs use and
+# at one (72) that is not a multiple of 16.
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,kv,d,window,dtype", [
     (1, 128, 4, 4, 32, 0, torch.float32),
@@ -89,14 +108,22 @@ def test_cpu_tensors_never_launch_the_kernel():
     (1, 300, 8, 2, 80, 0, torch.float32),
     (2, 300, 32, 32, 80, 0, torch.bfloat16),
     (1, 256, 32, 8, 128, 0, torch.bfloat16),
+    (2, 128, 4, 2, 16, 0, torch.bfloat16),
+    (2, 128, 4, 2, 32, 0, torch.bfloat16),
+    (1, 256, 8, 2, 64, 0, torch.bfloat16),
+    (1, 200, 8, 4, 72, 0, torch.bfloat16),
+    (2, 128, 4, 2, 32, 48, torch.bfloat16),
+    (1, 300, 16, 2, 128, 100, torch.bfloat16),
+    (2, 200, 32, 32, 80, 0, torch.bfloat16),
+    (1, 300, 64, 8, 128, 0, torch.bfloat16),
+    (1, 77, 4, 1, 20, 0, torch.bfloat16),
 ])
 def test_cuda_kernel_matches_plain_twin(b, s, h, kv, d, window, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    q, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(b, s, h, kv, d, seed=s))
-    before = fa.launches
-    got = ops.flash_attention(q, k, v, causal=True, window=window)
-    assert fa.launches == before + 1
-    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=True, window=window)
-    tol = 2e-5 if dtype == torch.float32 else 3e-2
-    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=tol, rtol=max(tol, 1e-4))
+    _cuda_against_plain(b, s, h, kv, d, window, dtype, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,dtype", [(200, 32, torch.float32), (300, 80, torch.bfloat16),
+                                       (200, 128, torch.bfloat16)])
+def test_cuda_kernel_bidirectional_ragged_matches_plain_twin(s, d, dtype):
+    _cuda_against_plain(1, s, 8, 2, d, 0, dtype, causal=False)

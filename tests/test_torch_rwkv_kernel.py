@@ -14,6 +14,7 @@ from repro.kernels.ref import rwkv6_ref
 from repro.kernels.rwkv6 import rwkv6_chunked_bh as pallas_rwkv6_bh
 from repro_torch.kernels import ops
 from repro_torch.kernels import rwkv6 as wkv
+from repro_torch.models.rwkv import wkv_chunk
 
 ATOL, RTOL = 1e-4, 1e-3
 
@@ -95,7 +96,30 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert wkv.launches == before
     flat = [x.reshape(2, 16, 8) for x in (r, k, v, lw)]
     with pytest.raises(ValueError, match="CUDA"):
-        wkv.rwkv6_cuda(*flat, u.reshape(2, 1, 8), s0.reshape(2, 8, 8), chunk=8)
+        wkv.rwkv6_cuda(*flat, u.reshape(2, 1, 8), s0.reshape(2, 8, 8))
+
+
+@pytest.mark.parametrize("k,nonzero_s0,logw", [(16, True, None), (8, False, -30.0)])
+def test_plain_twin_does_not_depend_on_the_chunk(k, nonzero_s0, logw):
+    """The property the CUDA kernel relies on when it tiles time with a
+    chunk of its own: at T = 96 the plain twin gives the same out and final
+    state at chunks 1, 3 and 32, and each matches the Pallas kernel
+    (interpret mode) at that chunk."""
+    arrays = _inputs(2, 96, 2, k, seed=96 + k, nonzero_s0=nonzero_s0, logw=logw)
+    flat = [a.transpose(0, 2, 1, 3).reshape(4, 96, -1) for a in arrays[:4]]
+    u = np.broadcast_to(arrays[4][None], (2, 2, k)).reshape(4, 1, k).copy()
+    bh_arrays = (*flat, u, arrays[5].reshape(4, k, k))
+    results = {}
+    for chunk in (1, 3, 32):
+        got_o, got_s = wkv.rwkv6_plain(*(torch.from_numpy(a) for a in bh_arrays), chunk=chunk)
+        want_o, want_s = pallas_rwkv6_bh(*(jnp.asarray(a) for a in bh_arrays), chunk=chunk,
+                                         interpret=True)
+        _close_both_ways(got_o.numpy(), np.asarray(want_o))
+        _close_both_ways(got_s.numpy(), np.asarray(want_s))
+        results[chunk] = (got_o.numpy(), got_s.numpy())
+    for chunk in (3, 32):
+        _close_both_ways(results[chunk][0], results[1][0])
+        _close_both_ways(results[chunk][1], results[1][1])
 
 
 # (B, T, H, K, chunk, nonzero s0, constant logw)
@@ -106,6 +130,9 @@ CUDA_CASES = [
     (1, 64, 1, 8, 32, False, -30.0),
     (2, 37, 2, 16, 1, True, None),
     (1, 300, 64, 64, 30, True, None),  # rwkv6-7b's heads at a serving length
+    (1, 293, 64, 64, 1, True, None),  # a prime prompt: chunk 1
+    (1, 293, 4, 64, 1, False, -30.0),
+    (2, 45, 2, 6, 5, True, None),  # K = V = 6: 4-byte copies
 ]
 
 
@@ -126,6 +153,26 @@ def test_cuda_kernel_matches_plain_twin(b, t, h, k, chunk, nonzero_s0, logw):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [293, 300])
+def test_cuda_result_does_not_depend_on_the_chunk(t):
+    """On the card ``ops.rwkv6_chunked`` gives the same result for chunk 1
+    and chunk 32 (the kernel tiles time by its own chunk), and matches the
+    plain twin at the chunk the reference's rule picks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays = _inputs(2, t, 8, 64, seed=t, nonzero_s0=True)
+    on_card = [torch.from_numpy(a).cuda() for a in arrays]
+    got = {chunk: ops.rwkv6_chunked(*on_card, chunk=chunk) for chunk in (1, 32)}
+    torch.cuda.synchronize()
+    for x, y in zip(got[1], got[32]):
+        assert torch.equal(x, y)
+    chunk = wkv_chunk(t)  # the reference's rule: 1 at T = 293, 30 at T = 300
+    want_o, want_s = ops.rwkv6_chunked(*(torch.from_numpy(a) for a in arrays), chunk=chunk)
+    np.testing.assert_allclose(got[1][0].cpu().numpy(), want_o.numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got[1][1].cpu().numpy(), want_s.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_raises_on_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -133,11 +180,14 @@ def test_cuda_kernel_raises_on_what_it_does_not_take():
     flat = [x.reshape(1, 64, 8) for x in (r, k, v, lw)]
     u, s0 = u.reshape(1, 1, 8), s0.reshape(1, 8, 8)
     with pytest.raises(TypeError, match="float32"):
-        wkv.rwkv6_cuda(*(x.bfloat16() for x in flat), u, s0, chunk=32)
+        wkv.rwkv6_cuda(*(x.bfloat16() for x in flat), u, s0)
+    with pytest.raises(TypeError, match="chunk"):
+        wkv.rwkv6_cuda(*flat, u, s0, chunk=32)  # the kernel picks its own chunk
+    empty = [x[:, :0] for x in flat]  # T = 0
     with pytest.raises(ValueError, match="unsupported"):
-        wkv.rwkv6_cuda(*flat, u, s0, chunk=64)  # chunks of more than 32
+        wkv.rwkv6_cuda(*empty, u, s0)
     wide = [x.repeat(1, 1, 16) for x in flat]  # K = V = 128
     with pytest.raises(ValueError, match="unsupported"):
-        wkv.rwkv6_cuda(*wide, u.repeat(1, 1, 16), s0.repeat(1, 16, 16), chunk=32)
+        wkv.rwkv6_cuda(*wide, u.repeat(1, 1, 16), s0.repeat(1, 16, 16))
     with pytest.raises(ValueError, match="disagree"):
-        wkv.rwkv6_cuda(*flat, u, s0[:, :4], chunk=32)
+        wkv.rwkv6_cuda(*flat, u, s0[:, :4])
