@@ -10,8 +10,10 @@ Phases, each of which exits non-zero when it fails:
   2. the build: ``nvcc`` compiles the three kernels (flash attention,
      RWKV-6 WKV, Mamba selective scan) for sm_90a from the checkout's
      sources, in parallel, and prints their registers, shared memory and
-     spills;
-  3. each kernel against its plain-torch twin on the card, case by case;
+     spills, and the Mamba scan's resident blocks per SM;
+  3. each kernel against its plain-torch twin on the card, case by case
+     (the Mamba scan also at both ends of jamba's decay range and with x
+     in bfloat16);
   4. the slices: stablelm-3b and rwkv6-7b at full width and depth, and
      jamba-1.5-large without experts at full width and 16 layers, each in
      bf16 with seeded random weights, answer 8 requests in batches of 4
@@ -23,7 +25,8 @@ Phases, each of which exits non-zero when it fails:
      the CPU (plain twins) on the same weights: logits and greedy tokens;
   6. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
-     serving shapes beside the card's bound.
+     serving shapes beside the card's bound (the Mamba scan also beside
+     the least time of its exponentials on the special-function unit).
 The last line is the JSON result; the line before it lists the kernels,
 and the one before that names the card.
 """
@@ -31,6 +34,7 @@ and the one before that names the card.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -99,18 +103,23 @@ PRIME_PROMPT_LENS = [8, 300, 37, 129, 64, 293, 17, 150]
 WKV_TIMING_SHAPE = (4, 2048, 64, 64, 32)  # B, T, H, K = V, chunk: rwkv6-7b prefill
 WKV_SERVING_SHAPE = (4, 293, 64, 64, 1)  # a prime-length prompt: chunk 1
 
-# (B, T, DI, N, chunk, nonzero h0, label); f32, atol 1e-4 / rtol 1e-3 as in
-# tests/test_kernels.py. The first three are that file's MAMBA_CASES. The
-# chunk tiles the plain twin; the kernel steps through time and takes none.
+# (B, T, DI, N, chunk, nonzero h0, draw, x dtype, label); atol 1e-4 / rtol
+# 1e-3 as in tests/test_kernels.py. The first three are that file's
+# MAMBA_CASES. The chunk tiles the plain twin; the kernel steps through time
+# and takes none. The draws are those of mamba_inputs.
 MAMBA_CASES = [
-    (1, 64, 32, 4, 32, False, "reference case 1"),
-    (2, 128, 64, 8, 32, False, "reference case 2"),
-    (2, 64, 96, 16, 16, False, "reference case 3"),
-    (1, 32, 16, 4, 16, True, "nonzero h0"),
-    (2, 64, 100, 16, 16, True, "ragged DI=100"),
-    (2, 300, 512, 16, 60, True, "chunk 60, T=300"),
-    (2, 293, 512, 16, 1, True, "chunk 1, T=293"),
-    (4, 300, 16384, 16, 60, True, "jamba width, B=4 T=300"),
+    (1, 64, 32, 4, 32, False, "reference", torch.float32, "reference case 1"),
+    (2, 128, 64, 8, 32, False, "reference", torch.float32, "reference case 2"),
+    (2, 64, 96, 16, 16, False, "reference", torch.float32, "reference case 3"),
+    (1, 32, 16, 4, 16, True, "reference", torch.float32, "nonzero h0"),
+    (2, 64, 100, 16, 16, True, "reference", torch.float32, "ragged DI=100"),
+    (2, 300, 512, 16, 60, True, "reference", torch.float32, "chunk 60, T=300"),
+    (2, 293, 512, 16, 1, True, "reference", torch.float32, "chunk 1, T=293"),
+    (4, 300, 16384, 16, 60, True, "reference", torch.float32, "jamba width, B=4 T=300"),
+    (1, 2048, 512, 16, 64, True, "slow decay", torch.float32, "slow decay, T=2048"),
+    (2, 300, 512, 16, 60, True, "deep underflow", torch.float32, "deep underflow"),
+    (4, 300, 16384, 16, 60, True, "reference", torch.bfloat16, "bf16 x, jamba width, B=4 T=300"),
+    (2, 64, 100, 16, 16, True, "reference", torch.bfloat16, "bf16 x, ragged DI=100"),
 ]
 MAMBA_ATOL, MAMBA_RTOL = 1e-4, 1e-3
 # jamba no-moe: 14 Mamba and 2 attention layers; batches of 4 pad to
@@ -118,6 +127,7 @@ MAMBA_ATOL, MAMBA_RTOL = 1e-4, 1e-3
 JAMBA_PER_PREFILL = {"mamba_scan": 14, "flash_attention": 2}
 MAMBA_TIMING_SHAPE = (4, 2048, 16384, 16, 64)  # B, T, DI, N, chunk: jamba prefill
 MAMBA_SERVING_SHAPES = {"T=300": (4, 300, 16384, 16, 60), "T=293": (4, 293, 16384, 16, 1)}
+MUFU_PER_CLOCK = 16  # exponentials per clock on each SM (ex2 on the special-function unit)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -153,33 +163,42 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
 
 
 def device_ms(fn, iters: int) -> float:
-    """Mean device time per call: the device time of the kernels ``fn``
-    launches under the profiler, summed, over the calls the profiler
-    recorded (the most launches of any one kernel, at most ``iters``).
-    Unlike ``cuda_ms`` it leaves out any gap between launches."""
+    """Mean device time per call: for each kernel ``fn`` launches, its
+    device time under the profiler over the launches the profiler recorded
+    of it (at most ``iters``), summed over the kernels. Unlike ``cuda_ms``
+    it leaves out any gap between launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = max((e.count for e in events), default=0)
+    for _ in range(3):  # the profiler now and then records nothing: ask again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = max((e.count for e in events), default=0)
+        if calls:
+            break
     check(0 < calls <= iters, f"the profiler recorded {calls} launches of {iters} calls")
     if calls < iters:
         print(f"[time] the profiler recorded {calls} of {iters} calls")
-    return sum(e.self_device_time_total for e in events) / calls / 1e3
+    return sum(e.self_device_time_total / e.count for e in events if e.count) / 1e3
+
+
+def smi(query: str, units: bool = False) -> str:
+    """``nvidia-smi --query-gpu=<query>`` for the first card, as CSV without
+    a header (and without units unless asked)."""
+    fmt = "csv,noheader" if units else "csv,noheader,nounits"
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return res.stdout.strip().splitlines()[0]
 
 
 def phase_card() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    card = smi("name,power.limit", units=True)
     print(f"[card] nvidia-smi: {card}")
     print(f"[card] torch: {torch.cuda.get_device_name(0)}, devices: {torch.cuda.device_count()}, "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -210,6 +229,11 @@ def phase_build() -> None:
             if line.strip():
                 print(f"[build] {name}: {line.strip()}")
     print(f"[build] {time.perf_counter() - t0:.1f} s")
+    ms = mods["mamba_scan"]
+    for dtype in (torch.float32, torch.bfloat16):
+        print(f"[build] mamba_scan N=16, x {str(dtype).split('.')[-1]}: "
+              f"{ms.occupancy(16, dtype)} resident blocks of 128 threads per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
 
 
 def phase_kernel_cases() -> float:
@@ -291,10 +315,16 @@ def phase_wkv_cases() -> float:
     return worst
 
 
-def mamba_inputs(b: int, t: int, di: int, n: int, gen: torch.Generator,
-                 nonzero_h0: bool = True) -> tuple[torch.Tensor, ...]:
-    """(dt, B, C, A, x, h0) on the card, drawn as the reference's tests
-    draw them: dt = softplus of a normal, A = -exp(0.5 * normal)."""
+def mamba_inputs(b: int, t: int, di: int, n: int, gen: torch.Generator, nonzero_h0: bool = True,
+                 draw: str = "reference",
+                 x_dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, ...]:
+    """(dt, B, C, A, x, h0) on the card. ``reference``: as the reference's
+    tests draw them, dt = softplus of a normal, A = -exp(0.5 * normal).
+    ``slow decay``: jamba's init, A = -(1..N) and dt log-uniform in
+    [1e-3, 1e-1] (``dt_bias_init``), so exp(dt * A) reaches 0.999.
+    ``deep underflow``: A = -(1..N) and the reference's dt times 30, so
+    dt * |A| * log2(e) > 127 for most n; x over 30 keeps dt * x at the
+    reference draw's size. x is then cast to ``x_dtype``."""
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
@@ -303,12 +333,22 @@ def mamba_inputs(b: int, t: int, di: int, n: int, gen: torch.Generator,
     a = -torch.exp(randn(di, n) * 0.5)
     x = randn(b, t, di)
     h0 = randn(b, di, n) if nonzero_h0 else torch.zeros((b, di, n), device="cuda")
-    return dt, bm, cm, a, x, h0
+    if draw != "reference":
+        a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").repeat(di, 1)
+    if draw == "slow decay":
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        dt = torch.exp(torch.rand((b, t, di), generator=gen, device="cuda") * (hi - lo) + lo)
+    elif draw == "deep underflow":
+        dt, x = dt * 30.0, x / 30.0
+    else:
+        check(draw == "reference", f"unknown draw {draw}")
+    return dt, bm, cm, a, x.to(x_dtype), h0
 
 
 def mamba_against_plain(args: tuple[torch.Tensor, ...], chunk: int) -> tuple[list[float], bool]:
-    """Kernel and plain twin on the same inputs: the max errors of y and of
-    the final state, and whether both are within the tolerance."""
+    """Kernel and plain twin on the same inputs (x in its own type for
+    both): the max errors of y and of the final state, and whether both
+    are within the tolerance."""
     from repro_torch.kernels import mamba_scan as ms
 
     y, h = ms.mamba_scan_cuda(*args)
@@ -325,9 +365,11 @@ def phase_mamba_cases() -> float:
     """The Mamba scan kernel against its plain twin; returns the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    for b, t, di, n, chunk, nonzero_h0, label in MAMBA_CASES:
-        errs, ok = mamba_against_plain(mamba_inputs(b, t, di, n, gen, nonzero_h0), chunk)
-        print(f"[mamba] {label}: B={b} T={t} DI={di} N={n} chunk={chunk} f32 max_abs_err "
+    for b, t, di, n, chunk, nonzero_h0, draw, x_dtype, label in MAMBA_CASES:
+        errs, ok = mamba_against_plain(
+            mamba_inputs(b, t, di, n, gen, nonzero_h0, draw, x_dtype), chunk)
+        print(f"[mamba] {label}: B={b} T={t} DI={di} N={n} chunk={chunk} {draw} draw, x "
+              f"{str(x_dtype).split('.')[-1]} max_abs_err "
               f"y {errs[0]:.3e} h {errs[1]:.3e} (atol {MAMBA_ATOL}, rtol {MAMBA_RTOL}) "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"Mamba scan kernel disagrees with its plain twin: {label}")
@@ -553,15 +595,23 @@ def phase_wkv_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     }, rows["prime prompt"]
 
 
-def mamba_bound(b: int, t: int, di: int, n: int) -> tuple[float, int, float, int, int]:
+def mamba_bound(b: int, t: int, di: int, n: int,
+                x_bytes: int = 4) -> tuple[float, int, float, int, int]:
     """(ms, operations, ms, bytes, exponentials) of the scan: the least time
     for about 7 float32 operations per (b, t, d, n) (multiply, exp,
     multiply, multiply-add into h, multiply-add into y) at the float32 peak
-    outside the tensor cores, and for the bytes (each input read once, each
-    output written once) at the memory rate."""
+    outside the tensor cores, and for the bytes (each input read once, x at
+    ``x_bytes`` an element, each output written once) at the memory rate."""
     ops = 7 * b * t * di * n
-    nbytes = 4 * (3 * b * t * di + 2 * b * t * n + di * n + 2 * b * di * n)
+    nbytes = 4 * (2 * b * t * di + 2 * b * t * n + di * n + 2 * b * di * n) + x_bytes * b * t * di
     return ops / PEAK_F32_FLOPS * 1e3, ops, nbytes / PEAK_BYTES_S * 1e3, nbytes, b * t * di * n
+
+
+def mufu_floor_ms(exps: int) -> float:
+    """The least time for ``exps`` exponentials all on the special-function
+    unit: exps / (SMs x 16 a clock) at the card's largest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (sms * MUFU_PER_CLOCK) / (float(smi("clocks.max.sm")) * 1e6) * 1e3
 
 
 def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
@@ -569,21 +619,30 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
 
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
-    for label, (b, t, di, n, chunk) in (("prefill", MAMBA_TIMING_SHAPE), *MAMBA_SERVING_SHAPES.items()):
-        args = mamba_inputs(b, t, di, n, gen, nonzero_h0=False)
+    shapes = [("prefill", MAMBA_TIMING_SHAPE, torch.float32),
+              *((label, shape, torch.float32) for label, shape in MAMBA_SERVING_SHAPES.items()),
+              *((f"{label} bf16 x", shape, torch.bfloat16)
+                for label, shape in MAMBA_SERVING_SHAPES.items())]
+    for label, (b, t, di, n, chunk), x_dtype in shapes:
+        args = mamba_inputs(b, t, di, n, gen, nonzero_h0=False, x_dtype=x_dtype)
         errs, ok = mamba_against_plain(args, chunk)
         check(ok, f"Mamba timing shape {label} disagrees: {errs}")
         kernel_ms = cuda_ms(lambda: ms.mamba_scan_cuda(*args), 3, 20)
+        kernel_dev = device_ms(lambda: ms.mamba_scan_cuda(*args), 20)
         plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args, chunk=chunk, d_block=512), 1, 2)
-        t_ops, ops, t_bytes, nbytes, exps = mamba_bound(b, t, di, n)
-        print(f"[time] Mamba {label}: B={b} T={t} DI={di} N={n} chunk={chunk} f32: kernel "
-              f"{kernel_ms:.4f} ms ({kernel_ms / t * 1e3:.3f} us per step), plain "
-              f"{plain_ms:.4f} ms, no library call; bound {max(t_ops, t_bytes):.4f} ms "
-              f"({ops} ops -> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms); "
-              f"{exps} exponentials; max_abs_err {max(errs):.3e}")
-        rows[label] = {"shape": [b, t, di, n, chunk], "ms": kernel_ms, "plain_ms": plain_ms,
-                       "bound_ms": max(t_ops, t_bytes),
-                       "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": max(errs)}
+        t_ops, ops, t_bytes, nbytes, exps = mamba_bound(b, t, di, n, x_dtype.itemsize)
+        t_mufu = mufu_floor_ms(exps)
+        print(f"[time] Mamba {label}: B={b} T={t} DI={di} N={n} chunk={chunk} x "
+              f"{str(x_dtype).split('.')[-1]}: kernel {kernel_ms:.4f} ms (device {kernel_dev:.4f} "
+              f"ms, {kernel_dev / t * 1e3:.3f} us per step), plain {plain_ms:.4f} ms, no library "
+              f"call; bound {max(t_ops, t_bytes):.4f} ms ({ops} ops -> {t_ops:.4f} ms, {nbytes} "
+              f"bytes -> {t_bytes:.4f} ms); MUFU floor {t_mufu:.4f} ms ({exps} exponentials); "
+              f"max_abs_err {max(errs):.3e}")
+        rows[label] = {"shape": [b, t, di, n, chunk], "x": str(x_dtype).split(".")[-1],
+                       "ms": kernel_ms, "device_ms": kernel_dev, "plain_ms": plain_ms,
+                       "us_per_step": kernel_dev / t * 1e3, "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                       "mufu_floor_ms": t_mufu, "err": max(errs)}
     main = rows.pop("prefill")
     return {
         "name": "mamba_scan",

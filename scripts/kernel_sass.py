@@ -8,12 +8,19 @@ card, since the kernels are built the way the port builds them):
 
 For each kernel function it prints the number of SASS instructions and the
 most frequent opcodes, first for the whole function and then for the body
-of its main loop: the longest loop that holds a barrier. The
-flash-attention library holds one bf16 kernel per padded head dim and the
-Mamba scan one per state size; only ``--head-dims`` (default 80 and 128)
-and N = 16 are shown. Counts are static: a branch that runs on few tiles
-(the causal mask, the staging fallback for unaligned rows) counts as much
-as one that runs on every tile.
+of its main loop: the longest loop that holds a barrier or a wait for
+asynchronous copies (``BAR``, ``DEPBAR`` for ``cp.async.wait_group``,
+``SYNCS`` for an ``mbarrier``). For the Mamba scan it also prints counts per
+time step (each step stores one y value, so a loop's counts over its
+``STG`` count), of the main loop (staging and the tile's steps) and of the
+shortest loop that stores y (one step and its loop overhead). The flash-attention library holds one bf16
+kernel per padded head dim and the Mamba scan one per state size (and x
+type); only ``--head-dims`` (default 80 and 128) and N = 16 are shown.
+``--mamba-source`` reads another copy of the Mamba scan's source (an
+earlier commit's, say) in place of the checkout's. Counts are static: a
+branch that runs on few tiles (the causal mask, the staging fallback for
+unaligned rows, the ragged last tile) counts as much as one that runs on
+every tile.
 """
 
 from __future__ import annotations
@@ -28,6 +35,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
+WAITS = {"BAR", "DEPBAR", "SYNCS"}
+INTEGER = {"LEA", "LOP3", "SHF", "SEL", "PRMT", "BMSK", "SGXT", "VIADD", "VIADDMNMX",
+           "VIMNMX"}  # and every I*
 INSTR = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([.\w]*)\s*([^;]*);")
 
 
@@ -41,19 +51,31 @@ def parse(block: str) -> list[tuple[int, str, str]]:
     return out
 
 
-def main_loop(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
-    """The longest loop that holds a barrier: the instructions from the
-    target of a backward branch to that branch, with a BAR among them."""
-    best: list[tuple[int, str, str]] = []
+def loops(instrs: list[tuple[int, str, str]]) -> list[list[tuple[int, str, str]]]:
+    """Every loop: the instructions from the target of a backward branch to
+    that branch."""
+    out = []
     for i, (addr, op, args) in enumerate(instrs):
         m = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
         if not m or int(m.group(1), 16) >= addr:
             continue
         start = next(j for j, (a, _, _) in enumerate(instrs) if a >= int(m.group(1), 16))
-        body = instrs[start:i + 1]
-        if len(body) > len(best) and any(o == "BAR" for _, o, _ in body):
-            best = body
-    return best
+        out.append(instrs[start:i + 1])
+    return out
+
+
+def main_loop(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
+    """The longest loop that holds a barrier or a wait (one of ``WAITS``)."""
+    held = [body for body in loops(instrs) if any(o in WAITS for _, o, _ in body)]
+    return max(held, key=len, default=[])
+
+
+def step_loop(instrs: list[tuple[int, str, str]]) -> list[tuple[int, str, str]]:
+    """The Mamba scan's shortest loop that stores y: the loop over the time
+    steps of one tile (the ragged last tile's, where full tiles are
+    unrolled), the same step body as everywhere else."""
+    held = [body for body in loops(instrs) if any(o == "STG" for _, o, _ in body)]
+    return min(held, key=len, default=[])
 
 
 def census(instrs: list[tuple[int, str, str]], top: int) -> str:
@@ -61,12 +83,29 @@ def census(instrs: list[tuple[int, str, str]], top: int) -> str:
     return f"{len(instrs)} instructions: " + ", ".join(f"{op} {n}" for op, n in counts.most_common(top))
 
 
+def per_step(instrs: list[tuple[int, str, str]]) -> str:
+    """Counts per y store (one a time step) of a loop of the Mamba scan."""
+    counts = collections.Counter(op for _, op, _ in instrs)
+    steps = counts["STG"]
+    if not steps:
+        return "no STG in the loop"
+    groups = {
+        "MUFU": counts["MUFU"], "FFMA": counts["FFMA"], "FMUL": counts["FMUL"],
+        "FADD": counts["FADD"], "LDS": counts["LDS"], "LDGSTS": counts["LDGSTS"],
+        "integer": sum(n for op, n in counts.items() if op.startswith("I") or op in INTEGER),
+        "all": len(instrs),
+    }
+    return f"{steps} steps: " + ", ".join(f"{k} {v / steps:.2f}" for k, v in groups.items())
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--head-dims", type=int, nargs="*", default=[80, 128])
     parser.add_argument("--top", type=int, default=16)
+    parser.add_argument("--mamba-source", type=Path, default=None)
     args = parser.parse_args()
 
+    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import rwkv6 as wkv
@@ -74,7 +113,10 @@ def main() -> int:
     keep = {fa: {f"ILi{(d + 15) // 16}E" for d in args.head_dims}, ms: {"ILi16E"}, wkv: {""}}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for mod in (fa, wkv, ms):
-        path = mod.build().path
+        if mod is ms and args.mamba_source is not None:
+            path = kbuild.build("mamba_scan_other", args.mamba_source.resolve()).path
+        else:
+            path = mod.build().path
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                               check=True).stdout
         for block in sass.split("Function : ")[1:]:
@@ -84,7 +126,11 @@ def main() -> int:
             instrs = parse(block)
             print(f"{path.stem} {name}")
             print(f"  function  {census(instrs, args.top)}")
-            print(f"  main loop {census(main_loop(instrs), args.top)}")
+            loop = main_loop(instrs)
+            print(f"  main loop {census(loop, args.top)}")
+            if mod is ms:
+                print(f"  main loop per step  {per_step(loop)}")
+                print(f"  step loop per step  {per_step(step_loop(instrs))}")
     return 0
 
 

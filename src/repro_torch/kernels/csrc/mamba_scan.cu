@@ -5,7 +5,9 @@
 // runs the recurrence over time, from the state h0[b, d, :]:
 //   h_t[n] = exp(dt_t[d] * A[d, n]) * h_{t-1}[n] + dt_t[d] * x_t[d] * B_t[n],
 //   y_t[d] = sum_n C_t[n] * h_t[n],
-// and returns y (B, T, DI) and the final state h_T (B, DI, N), all float32.
+// and returns y (B, T, DI) and the final state h_T (B, DI, N), both float32.
+// x may be float32 or bfloat16 and is cast on load, as the Pallas body casts
+// it; everything else is float32.
 //
 // The TPU kernel walks a sequential grid axis of T/C chunks with a
 // (d_block, N) state in VMEM and an associative scan inside each chunk. Here
@@ -16,135 +18,337 @@
 // chunk 1, costs nothing extra.
 //
 // What bounds it on an H100. Each input is read once and each output written
-// once: at B=4, T=2048, DI=16384, N=16 that is ~1.62 GB, 0.48 ms at 3.35 TB/s,
-// against ~7 float32 operations per (b, t, d, n), ~1.5e10 in all, 0.22 ms at
-// 67 TFLOP/s. So bytes bound it. But every (b, t, d, n) also needs one
-// exponential, 2.1e9 of them, and an accurate expf costs about ten
-// instructions, one on the special-function unit; instruction issue, not
-// memory, is what limits this first design.
-//
-// Design (simple and right first):
-//   * blocks of 128 threads take 128 consecutive channels of one batch row,
-//     so the loads of dt and x and the stores of y are coalesced along DI;
-//     a ragged last channel block is masked;
-//   * per tile of 32 time steps each thread first issues all its loads of
-//     dt and x into its own column of shared memory (64 loads in flight per
-//     thread), and the block stages the tile's B_t and C_t rows (N floats
-//     each, shared by every channel); then it runs the 32 steps;
+// once: at B=4, T=2048, DI=16384, N=16 in float32 that is ~1.62 GB, 0.48 ms
+// at 3.35 TB/s. Every (b, t, d, n) also needs one exponential, 2.1e9 of
+// them; the special-function unit (MUFU) takes 16 a clock on each SM, so
+// with all of them there the floor is ~0.51 ms at 1.98 GHz, above the byte
+// bound. Instruction issue comes next: the design spends about 6 issued
+// instructions per (t, d, n) where the first one spent about 15:
+//   * A is pre-scaled by log2(e) once per thread, and 2^(dt*A2) comes from
+//     ex2.approx (a few ulp; the argument is never positive, dt > 0, A < 0);
+//     with MAMBA_POLY_EVERY = k > 0 the state indices n with n % k == k - 1
+//     take exp2_poly below on the FMA pipe instead (as accurate; on the
+//     H100 every such share measured slower, since issue, not MUFU, is
+//     what the moved exponentials land on);
+//   * per (t, d, n): one multiply for the exponent, the exponential, dt*x*B
+//     (dt*x once per (t, d)), one FMA into h, one FMA into y; B_t and C_t
+//     are read from shared memory as float4 broadcasts, and the sum over N
+//     runs as four partial sums and a tree;
+//   * blocks of 128 channels of one batch row (coalesced along DI; a ragged
+//     last block is masked), one thread per channel (MAMBA_LANES = 2 splits
+//     N over two threads and sums y by a shuffle: more warps, but more
+//     instructions and measured slower). Tiles of TILE_T steps of dt, x, B
+//     and C are staged by cp.async in a ring of STAGES tiles: tiles k + 1
+//     to k + 3 land while tile k runs, with one barrier per tile. At most 128
+//     registers and 36,864 bytes of shared memory keep 4 blocks resident on
+//     each SM, so B=4 at DI=16384 (512 blocks) runs in one wave;
 //   * no atomics and a fixed order of operations, so a run repeats bit for
-//     bit; accurate expf (the exponent dt*A is <= 0, nothing overflows).
+//     bit, and a bfloat16 x gives the same bits as the same x in float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ptx.cuh"
+
+// State indices n with n % MAMBA_POLY_EVERY == MAMBA_POLY_EVERY - 1 take
+// their exponential on the FMA pipe (8: n = 7 and 15 of 16); 0, the
+// default, takes none. scripts/mamba_scan_variants.py times the shares.
+#ifndef MAMBA_POLY_EVERY
+#define MAMBA_POLY_EVERY 0
+#endif
+
+// Threads per channel: 1 keeps all N states of a channel in one thread; 2
+// splits them, and a shuffle sums y (then at most 64 registers a thread).
+#ifndef MAMBA_LANES
+#define MAMBA_LANES 1
+#endif
+
+// The ring: STAGES tiles of TILE_T time steps (a power of two), STAGES - 1
+// of them in flight while one is computed.
+#ifndef MAMBA_TILE_T
+#define MAMBA_TILE_T 8
+#endif
+#ifndef MAMBA_STAGES
+#define MAMBA_STAGES 4
+#endif
+
 namespace {
 
-constexpr int THREADS = 128;  // channels per block
-constexpr int TILE_T = 32;    // time steps staged per pass
-constexpr int MAX_N = 16;     // largest state size
+constexpr int LANES = MAMBA_LANES;    // threads per channel, each with NP / LANES states
+constexpr int CHANNELS = 128;         // channels per block
+constexpr int THREADS = CHANNELS * LANES;
+constexpr int TILE_T = MAMBA_TILE_T;  // time steps per staged tile
+constexpr int STAGES = MAMBA_STAGES;  // tiles in the ring: STAGES - 1 in flight
+constexpr int MAX_N = 16;             // largest state size
+// Resident blocks per SM the register budget keeps: 512 channels an SM, so
+// B=4 at DI=16384 (65,536 channels on 132 SMs) runs in one wave.
+constexpr int MIN_BLOCKS = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(LANES == 1 || LANES == 2, "one or two threads per channel");
 
-template <int N>
-__global__ void __launch_bounds__(THREADS)
-mamba_scan_fwd_kernel(const float* __restrict__ dt, const float* __restrict__ x,
+// 2^x for x <= 0 on the FMA pipe: x is clamped at -125 (so the result stays
+// a normal float: 2^-125 where ex2.approx would give 0 or a subnormal flushed
+// to 0), split as x = j + f with j = rint(x) and f in [-0.5, 0.5], 2^f by a
+// degree-5 polynomial fitted for least relative error with p(0) = 1, and j
+// added to the exponent bits. Relative error at most 1.7e-7 (2^-22.5) in
+// float32, as the CPU test that evaluates these coefficients checks.
+__device__ __forceinline__ float exp2_poly(float x) {
+  x = fmaxf(x, -125.f);
+  const float t = x + 12582912.f;       // 1.5 * 2^23: rint(x) lands in the low bits
+  const float f = x - (t - 12582912.f);
+  float p = 1.326472731307149e-3f;
+  p = fmaf(p, f, 9.671512991189957e-3f);
+  p = fmaf(p, f, 5.550733581185341e-2f);
+  p = fmaf(p, f, 2.4022242426872253e-1f);
+  p = fmaf(p, f, 6.931470036506653e-1f);
+  p = fmaf(p, f, 1.f);
+  // The bits of t are 0x4B400000 + j; shifted by 23 only j << 23 is left.
+  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
+}
+
+// Whether state index j takes exp2_poly (see MAMBA_POLY_EVERY).
+__host__ __device__ constexpr bool poly_index(int j) {
+  return MAMBA_POLY_EVERY > 0 && j % (MAMBA_POLY_EVERY > 0 ? MAMBA_POLY_EVERY : 1) ==
+                                     MAMBA_POLY_EVERY - 1;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// One staged tile; NP is N rounded up to a multiple of 4 * LANES, and the
+// padding columns of b and c hold zeros.
+template <int NP, typename XT>
+struct __align__(16) Tile {
+  float dt[TILE_T][CHANNELS];
+  XT x[TILE_T][CHANNELS];
+  float b[TILE_T][NP];
+  float c[TILE_T][NP];
+};
+
+template <int NP, typename XT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
                       const float* __restrict__ bmat, const float* __restrict__ cmat,
                       const float* __restrict__ a, const float* __restrict__ h0,
-                      float* __restrict__ y, float* __restrict__ h_out, int t_len, int di) {
-  __shared__ float sdt[TILE_T][THREADS];
-  __shared__ float sx[TILE_T][THREADS];
-  __shared__ float sb[TILE_T][N];
-  __shared__ float sc[TILE_T][N];
+                      float* __restrict__ y, float* __restrict__ h_out, int t_len, int di,
+                      int n, bool vec) {
+  constexpr int NPL = NP / LANES;  // states of one thread
+  static_assert(NPL % 4 == 0, "float4 reads of B and C");
+  __shared__ Tile<NP, XT> ring[STAGES];
 
   const int tid = threadIdx.x;
-  const int d = blockIdx.x * THREADS + tid;
+  const int ch = tid / LANES, lane = tid % LANES;
+  const int d0 = blockIdx.x * CHANNELS;
+  const int d = d0 + ch;
   const size_t row0 = (size_t)blockIdx.y * t_len;  // index of (b, t = 0) in (B*T)
   const bool live = d < di;
-  const size_t state = ((size_t)blockIdx.y * di + d) * N;
 
-  float av[N], h[N];
+  float a2[NPL], h[NPL];
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    av[n] = live ? a[(size_t)d * N + n] : 0.f;
-    h[n] = live ? h0[state + n] : 0.f;
+  for (int i = 0; i < NPL; ++i) {
+    const int j = lane * NPL + i;
+    const bool on = live && j < n;
+    a2[i] = on ? a[(size_t)d * n + j] * LOG2E : 0.f;  // padding: 2^0 * 0 + dtx * 0
+    h[i] = on ? h0[((size_t)blockIdx.y * di + d) * n + j] : 0.f;
   }
 
-  for (int t0 = 0; t0 < t_len; t0 += TILE_T) {
+  // Each thread's copy slots, the same in every tile. dt and x: 16-byte
+  // pieces of a tile row, rows r, r + ROWS, ...; B and C: element (s, j).
+  constexpr int DT_CH = CHANNELS * 4 / 16, DT_ROWS = THREADS / DT_CH;
+  constexpr int XE = 16 / sizeof(XT), X_CH = CHANNELS / XE, X_ROWS = THREADS / X_CH;
+  static_assert((STAGES & (STAGES - 1)) == 0, "a ring of a power of two");
+  const int dt_r = tid / DT_CH, dt_c = tid % DT_CH * 4;
+  const int x_r = tid / X_CH, x_c = tid % X_CH * XE;
+  const int dt_bytes = max(0, min(16, (di - d0 - dt_c) * 4));  // 0 past DI: zero-filled
+  const int x_bytes = max(0, min(16, (di - d0 - x_c) * (int)sizeof(XT)));
+  const float* dt_src = dt + (row0 + dt_r) * di + d0 + dt_c;
+  const XT* x_src = x + (row0 + x_r) * di + d0 + x_c;
+  constexpr int BC_PASSES = (TILE_T * NP + THREADS - 1) / THREADS;
+#pragma unroll
+  for (int p = 0; p < BC_PASSES; ++p) {  // padding columns stay zero
+    const int s = (tid + p * THREADS) / NP, j = (tid + p * THREADS) % NP;
+    if (s < TILE_T && j >= n) {
+#pragma unroll
+      for (int st = 0; st < STAGES; ++st) ring[st].b[s][j] = ring[st].c[s][j] = 0.f;
+    }
+  }
+
+  // Issue the copies of tile k into its slot of the ring (nothing past T).
+  auto stage_tile = [&](int k) {
+    const int t0 = k * TILE_T;
+    if (t0 >= t_len) return;
     const int steps = min(TILE_T, t_len - t0);
-    // Stage the tile. The barrier that ends the previous tile orders these
-    // writes after its reads.
-    if (live) {
+    Tile<NP, XT>& tile = ring[k & (STAGES - 1)];
+    if (vec) {  // rows start on 16 bytes: 16-byte copies
+#pragma unroll
+      for (int p = 0; p < (TILE_T + DT_ROWS - 1) / DT_ROWS; ++p) {
+        const int s = dt_r + p * DT_ROWS;
+        if (s < steps)
+          ptx::cp_async_16(&tile.dt[s][dt_c],
+                           dt_bytes ? dt_src + (size_t)(t0 + p * DT_ROWS) * di : dt, dt_bytes);
+      }
+#pragma unroll
+      for (int p = 0; p < (TILE_T + X_ROWS - 1) / X_ROWS; ++p) {
+        const int s = x_r + p * X_ROWS;
+        if (s < steps)
+          ptx::cp_async_16(&tile.x[s][x_c],
+                           x_bytes ? x_src + (size_t)(t0 + p * X_ROWS) * di : x, x_bytes);
+      }
+    } else if (lane == 0) {  // any other DI or alignment: plain loads of the channel's column
       for (int s = 0; s < steps; ++s) {
         const size_t g = (row0 + t0 + s) * di + d;
-        sdt[s][tid] = dt[g];
-        sx[s][tid] = x[g];
+        tile.dt[s][ch] = live ? dt[g] : 0.f;
+        tile.x[s][ch] = live ? x[g] : XT(0.f);
       }
     }
-    for (int i = tid; i < steps * N; i += THREADS) {
-      const int s = i / N, n = i - s * N;
-      const size_t g = (row0 + t0 + s) * N + n;
-      sb[s][n] = bmat[g];
-      sc[s][n] = cmat[g];
-    }
-    __syncthreads();
-
-    if (live) {
-      for (int s = 0; s < steps; ++s) {
-        const float dtv = sdt[s][tid];
-        const float dtx = dtv * sx[s][tid];
-        float acc = 0.f;
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = expf(dtv * av[n]) * h[n] + dtx * sb[s][n];
-          acc += h[n] * sc[s][n];
-        }
-        y[(row0 + t0 + s) * di + d] = acc;
+    for (int p = 0; p < BC_PASSES; ++p) {
+      const int s = (tid + p * THREADS) / NP, j = (tid + p * THREADS) % NP;
+      if (j < n && s < steps) {
+        const size_t g = (row0 + t0 + s) * n + j;
+        ptx::cp_async_4(&tile.b[s][j], bmat + g, 4);
+        ptx::cp_async_4(&tile.c[s][j], cmat + g, 4);
       }
     }
-    __syncthreads();
+  };
+
+  // One time step from the tile: the state update and y_t[d] (in every
+  // lane of the channel).
+  auto step = [&](const Tile<NP, XT>& tile, int s) -> float {
+    const float dtv = tile.dt[s][ch];
+    const float dtx = dtv * to_float(tile.x[s][ch]);
+    const float4* bv = reinterpret_cast<const float4*>(tile.b[s] + lane * NPL);
+    const float4* cv = reinterpret_cast<const float4*>(tile.c[s] + lane * NPL);
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < NPL / 4; ++q) {
+      const float4 bq = bv[q], cq = cv[q];
+      const float bb[4] = {bq.x, bq.y, bq.z, bq.w}, cc[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * q + r;
+        const float e = dtv * a2[i];
+        const float da = poly_index(i) ? exp2_poly(e) : ptx::ex2(e);
+        h[i] = fmaf(da, h[i], dtx * bb[r]);
+        part[r] = fmaf(cc[r], h[i], part[r]);
+      }
+    }
+    float v = (part[0] + part[1]) + (part[2] + part[3]);
+#pragma unroll
+    for (int m = 1; m < LANES; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
+    return v;
+  };
+
+  const int ntiles = (t_len + TILE_T - 1) / TILE_T;
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) {
+    stage_tile(k);
+    ptx::cp_async_commit();  // an empty group past T keeps the count
   }
+  const bool store = live && lane == 0;
+  float* yp = y + row0 * di + d;
+  for (int k = 0; k < ntiles; ++k) {
+    ptx::cp_async_wait<STAGES - 2>();  // tile k has landed (this thread's copies)
+    __syncthreads();  // everyone's copies of tile k, and everyone is done with tile k - 1
+    stage_tile(k + STAGES - 1);  // into tile k - 1's slot
+    ptx::cp_async_commit();
+
+    const Tile<NP, XT>& tile = ring[k & (STAGES - 1)];
+    const int steps = min(TILE_T, t_len - k * TILE_T);
+    if (steps == TILE_T) {
+#pragma unroll
+      for (int s = 0; s < TILE_T; ++s) {
+        const float v = step(tile, s);
+        if (store) *yp = v;
+        yp += di;
+      }
+    } else {
+#pragma unroll 1
+      for (int s = 0; s < steps; ++s) {
+        const float v = step(tile, s);
+        if (store) *yp = v;
+        yp += di;
+      }
+    }
+  }
+  ptx::cp_async_wait<0>();  // no copy outlives the block
 
   if (live) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) h_out[state + n] = h[n];
+    for (int i = 0; i < NPL; ++i) {
+      const int j = lane * NPL + i;
+      if (j < n) h_out[((size_t)blockIdx.y * di + d) * n + j] = h[i];
+    }
   }
 }
 
-template <int N>
-cudaError_t launch(const float* dt, const float* x, const float* b, const float* c,
-                   const float* a, const float* h0, float* y, float* h_out, int bsz, int t,
-                   int di, cudaStream_t stream) {
-  const dim3 grid((di + THREADS - 1) / THREADS, bsz);
-  mamba_scan_fwd_kernel<N><<<grid, THREADS, 0, stream>>>(dt, x, b, c, a, h0, y, h_out, t, di);
-  return cudaGetLastError();
+// The kernel's arguments; run<NP, XT>() launches the instantiation.
+struct Launch {
+  const float *dt;
+  const void* x;
+  const float *b, *c, *a, *h0;
+  float *y, *h_out;
+  int bsz, t, di, n;
+  cudaStream_t stream;
+
+  template <int NP, typename XT>
+  cudaError_t run() const {
+    const bool vec = reinterpret_cast<uintptr_t>(dt) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(x) % 16 == 0 && (size_t)di * 4 % 16 == 0 &&
+                     (size_t)di * sizeof(XT) % 16 == 0;
+    const dim3 grid((di + CHANNELS - 1) / CHANNELS, bsz);
+    mamba_scan_fwd_kernel<NP, XT><<<grid, THREADS, 0, stream>>>(
+        dt, static_cast<const XT*>(x), b, c, a, h0, y, h_out, t, di, n, vec);
+    return cudaGetLastError();
+  }
+};
+
+// Resident blocks per SM of an instantiation, from the occupancy calculator.
+struct Occupancy {
+  int* blocks;
+
+  template <int NP, typename XT>
+  cudaError_t run() const {
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mamba_scan_fwd_kernel<NP, XT>,
+                                                         THREADS, 0);
+  }
+};
+
+// f.run<NP, XT>() for the instantiation that state size n and x's type take:
+// NP is n rounded up to a multiple of 4 * LANES.
+template <typename F, int NP = 4 * LANES>
+cudaError_t dispatch(const F& f, int n, int x_bf16) {
+  if constexpr (NP > MAX_N) {
+    return cudaErrorInvalidValue;
+  } else {
+    if (n <= NP)
+      return x_bf16 ? f.template run<NP, __nv_bfloat16>() : f.template run<NP, float>();
+    return dispatch<F, NP + 4 * LANES>(f, n, x_bf16);
+  }
 }
 
 }  // namespace
 
-// dt, x, y: (bsz, t, di); b, c: (bsz, t, n); a: (di, n); h0, h_out:
-// (bsz, di, n); all float32, contiguous, on one device. Needs 1 <= n <= 16
-// and 1 <= bsz <= 65535. Returns a cudaError_t (0 on success).
+// dt, y: (bsz, t, di) float32; x: (bsz, t, di) float32 (x_bf16 = 0) or
+// bfloat16 (x_bf16 = 1); b, c: (bsz, t, n); a: (di, n); h0, h_out:
+// (bsz, di, n); all float32 but x, contiguous, on one device. Needs
+// 1 <= n <= 16 and 1 <= bsz <= 65535. Returns a cudaError_t (0 on success).
 extern "C" int mamba_scan_fwd(const void* dt, const void* x, const void* b, const void* c,
                               const void* a, const void* h0, void* y, void* h_out, int bsz,
-                              int t, int di, int n, void* stream) {
-  if (bsz < 1 || bsz > 65535 || t < 1 || di < 1 || n < 1 || n > MAX_N)
+                              int t, int di, int n, int x_bf16, void* stream) {
+  if (bsz < 1 || bsz > 65535 || t < 1 || di < 1 || n < 1 || n > MAX_N || (x_bf16 & ~1))
     return (int)cudaErrorInvalidValue;
-  const float* dtf = static_cast<const float*>(dt);
-  const float* xf = static_cast<const float*>(x);
-  const float* bf = static_cast<const float*>(b);
-  const float* cf = static_cast<const float*>(c);
-  const float* af = static_cast<const float*>(a);
-  const float* h0f = static_cast<const float*>(h0);
-  float* yf = static_cast<float*>(y);
-  float* hf = static_cast<float*>(h_out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n) {
-#define MAMBA_CASE(NS) \
-  case NS:             \
-    return (int)launch<NS>(dtf, xf, bf, cf, af, h0f, yf, hf, bsz, t, di, s);
-    MAMBA_CASE(1) MAMBA_CASE(2) MAMBA_CASE(3) MAMBA_CASE(4)
-    MAMBA_CASE(5) MAMBA_CASE(6) MAMBA_CASE(7) MAMBA_CASE(8)
-    MAMBA_CASE(9) MAMBA_CASE(10) MAMBA_CASE(11) MAMBA_CASE(12)
-    MAMBA_CASE(13) MAMBA_CASE(14) MAMBA_CASE(15) MAMBA_CASE(16)
-#undef MAMBA_CASE
-  }
-  return (int)cudaErrorInvalidValue;
+  const Launch f{static_cast<const float*>(dt), x, static_cast<const float*>(b),
+                 static_cast<const float*>(c), static_cast<const float*>(a),
+                 static_cast<const float*>(h0), static_cast<float*>(y),
+                 static_cast<float*>(h_out), bsz, t, di, n, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(f, n, x_bf16);
+}
+
+// Resident blocks per SM of the kernel that mamba_scan_fwd launches for a
+// state size n and x's type (0 or 1, as x_bf16 there).
+extern "C" int mamba_scan_occupancy(int n, int x_bf16, int* blocks) {
+  if (n < 1 || n > MAX_N || (x_bf16 & ~1)) return (int)cudaErrorInvalidValue;
+  return (int)dispatch(Occupancy{blocks}, n, x_bf16);
 }

@@ -7,10 +7,15 @@ from ``h0``, each returning ``(y, h_final)`` in float32:
 
 * ``mamba_scan_cuda`` launches the hand-written CUDA C++ kernel in
   ``csrc/mamba_scan.cu``, built by ``kernels.build`` at first use. It takes
-  float32 only, any T and DI, a state size N of 1 to ``MAX_STATE``, and
+  x in float32 or bfloat16 (cast on load, as the Pallas body casts it, so
+  a bfloat16 x gives the same bits as ``x.float()``) and everything else
+  in float32, any T and DI, a state size N of 1 to ``MAX_STATE``, and
   raises on anything else. It runs the recurrence step by step, so it
   takes no ``chunk`` or ``d_block``: the Pallas grid's tiling has no
-  counterpart in it. It counts its launches in ``launches``.
+  counterpart in it. It counts its launches in ``launches``. ``load``
+  builds the same source with other nvcc flags (the kernel's
+  compile-time variants), and ``occupancy`` reports its resident blocks
+  per SM.
 * ``mamba_scan_plain`` is the plain-torch twin with the Pallas body's
   numerics, chunk by chunk: ``da = exp(dt·a)``, ``dbx = dt·x·B`` as
   (B, C, DI, N), the in-chunk scan, ``h_all = acc_a·h + acc_b``,
@@ -24,10 +29,11 @@ from pathlib import Path
 
 import torch
 
-from .build import KernelBuild
+from .build import NVCC_FLAGS, KernelBuild
 from .build import build as build_kernel
 
 MAX_STATE = 16
+X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}  # x's type -> the C interface's x_bf16
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 
@@ -87,38 +93,63 @@ def mamba_scan_plain(
 _build: KernelBuild | None = None
 
 
+def load(flags: tuple[str, ...] = NVCC_FLAGS) -> KernelBuild:
+    """Compile the kernel with ``flags`` (once per source and flags), load
+    it and declare its C functions. ``build`` is this with the default
+    flags, kept; other flags give a variant of the same source."""
+    kb = build_kernel("mamba_scan", SOURCE, flags)
+    fn = kb.lib.mamba_scan_fwd
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dt x b c
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a h0 y h_out
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bsz t di n
+        ctypes.c_int,  # x_bf16
+        ctypes.c_void_p,  # stream
+    ]
+    fn.restype = ctypes.c_int
+    occ = kb.lib.mamba_scan_occupancy
+    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
+    return kb
+
+
 def build() -> KernelBuild:
     """Compile the kernel (once per source and flags) and load it."""
     global _build
     if _build is None:
-        kb = build_kernel("mamba_scan", SOURCE)
-        fn = kb.lib.mamba_scan_fwd
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dt x b c
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a h0 y h_out
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bsz t di n
-            ctypes.c_void_p,  # stream
-        ]
-        fn.restype = ctypes.c_int
-        _build = kb
+        _build = load()
     return _build
+
+
+def occupancy(n: int, x_dtype: torch.dtype, kernel: KernelBuild | None = None) -> int:
+    """Resident blocks per SM of the kernel launched for state size ``n``
+    and x of ``x_dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current device)."""
+    blocks = ctypes.c_int(0)
+    err = (kernel or build()).lib.mamba_scan_occupancy(n, X_DTYPES[x_dtype], ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"mamba_scan occupancy query failed: CUDA error {err}")
+    return blocks.value
 
 
 def mamba_scan_cuda(
     dt: torch.Tensor,  # (B, T, DI) float32 on a CUDA device
-    bmat: torch.Tensor,  # (B, T, N)
-    cmat: torch.Tensor,  # (B, T, N)
-    a: torch.Tensor,  # (DI, N)
-    x: torch.Tensor,  # (B, T, DI)
-    h0: torch.Tensor,  # (B, DI, N)
+    bmat: torch.Tensor,  # (B, T, N) float32
+    cmat: torch.Tensor,  # (B, T, N) float32
+    a: torch.Tensor,  # (DI, N) float32
+    x: torch.Tensor,  # (B, T, DI) float32 or bfloat16
+    h0: torch.Tensor,  # (B, DI, N) float32
+    *,
+    kernel: KernelBuild | None = None,  # a ``load`` of other flags; default ``build()``
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raise on anything it does not take."""
     global launches
     args = (dt, bmat, cmat, a, x, h0)
     if not (dt.is_cuda and all(v.device == dt.device for v in args)):
         raise ValueError("mamba_scan_cuda needs dt, B, C, A, x, h0 on one CUDA device")
-    if any(v.dtype != torch.float32 for v in args):
-        raise TypeError(f"dtypes {[v.dtype for v in args]}: the kernel takes float32 only")
+    if any(v.dtype != torch.float32 for v in (dt, bmat, cmat, a, h0)) or x.dtype not in X_DTYPES:
+        raise TypeError(f"dtypes {[v.dtype for v in args]}: the kernel takes float32, and x "
+                        f"in float32 or bfloat16")
     if dt.ndim != 3 or a.ndim != 2:
         raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(a.shape)}: need (B, T, DI), (DI, N)")
     bsz, t, di = dt.shape
@@ -132,11 +163,11 @@ def mamba_scan_cuda(
     dt, bmat, cmat, a, x, h0 = (v.contiguous() for v in args)
     y = torch.empty((bsz, t, di), dtype=torch.float32, device=dt.device)
     h_out = torch.empty((bsz, di, n), dtype=torch.float32, device=dt.device)
-    fn = build().lib.mamba_scan_fwd
+    fn = (kernel or build()).lib.mamba_scan_fwd
     with torch.cuda.device(dt.device):
         err = fn(
             dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), bsz, t, di, n,
+            h0.data_ptr(), y.data_ptr(), h_out.data_ptr(), bsz, t, di, n, X_DTYPES[x.dtype],
             torch.cuda.current_stream(dt.device).cuda_stream,
         )
     if err != 0:

@@ -75,14 +75,14 @@ def mamba_chunk_scan(
     d_block: int = 512,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns y (B, T, DI) and the final state (B, DI, N), both float32.
-    The kernel steps through time, so ``chunk`` and ``d_block`` only tile
-    the plain twin; there ``d_block`` shrinks until it divides DI, as the
+    The kernel takes x as it is (float32 or bfloat16, cast on load) and
+    steps through time, so ``chunk`` and ``d_block`` only tile the plain
+    twin; there ``d_block`` shrinks until it divides DI, as the
     reference's does."""
-    args = (dt, bmat, cmat, a, x.float(), h0)
     if dt.is_cuda:
-        return ms.mamba_scan_cuda(*args)
+        return ms.mamba_scan_cuda(dt, bmat, cmat, a, x, h0)
     di = dt.shape[-1]
     d_block = min(d_block, di)
     while di % d_block:
         d_block -= 1
-    return ms.mamba_scan_plain(*args, chunk=chunk, d_block=d_block)
+    return ms.mamba_scan_plain(dt, bmat, cmat, a, x.float(), h0, chunk=chunk, d_block=d_block)

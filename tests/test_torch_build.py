@@ -102,15 +102,19 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
 @pytest.mark.parametrize("module,name,symbol,nargs", [
     (fa, "flash_attention", "flash_attention_fwd", 13),
     (wkv, "rwkv6", "rwkv6_wkv_fwd", 13),
-    (ms, "mamba_scan", "mamba_scan_fwd", 13),
+    (ms, "mamba_scan", "mamba_scan_fwd", 14),
 ])
 def test_kernels_bind_through_the_shared_build(module, name, symbol, nargs, monkeypatch):
     calls = []
 
-    def fake_build(kernel_name, source):
+    class FakeLib:  # every C function the module declares, made on first use
+        def __getattr__(self, attr):
+            setattr(self, attr, types.SimpleNamespace())
+            return getattr(self, attr)
+
+    def fake_build(kernel_name, source, *flags):
         calls.append((kernel_name, source))
-        lib = types.SimpleNamespace(**{symbol: types.SimpleNamespace()})
-        return kbuild.KernelBuild(lib, Path("unused.so"), None, "")
+        return kbuild.KernelBuild(FakeLib(), Path("unused.so"), None, "")
 
     monkeypatch.setattr(module, "build_kernel", fake_build)
     monkeypatch.setattr(module, "_build", None)

@@ -1,8 +1,12 @@
 """Mamba-1 selective scan: the port's plain twin against the reference's
-Pallas kernel (interpret mode on the CPU) and its step-by-step oracle; the
-CUDA kernel against the plain twin on a card (``-m cuda``). Inputs come
-from numpy seeds; tolerances are those of ``tests/test_kernels.py`` (atol
-1e-4, rtol 1e-3)."""
+Pallas kernel (interpret mode on the CPU) and its step-by-step oracle, also
+at both ends of jamba's decay range; the FMA-pipe exponential of the CUDA
+source, evaluated on the CPU; the CUDA kernel against the plain twin on a
+card (``-m cuda``), with x in float32 and bfloat16. Inputs come from numpy
+seeds; tolerances are those of ``tests/test_kernels.py`` (atol 1e-4, rtol
+1e-3)."""
+
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,27 +20,48 @@ from repro_torch.kernels import ops
 
 ATOL, RTOL = 1e-4, 1e-3
 
-# (B, T, DI, N, chunk, d_block, nonzero h0, label): the reference's
-# MAMBA_CASES, its nonzero-state carry, and chunk 1 on a prime T, which the
-# model's chunk rule picks for a prime T above 64 (e.g. 293)
+# (B, T, DI, N, chunk, d_block, nonzero h0, draw, label): the reference's
+# MAMBA_CASES, its nonzero-state carry, chunk 1 on a prime T, which the
+# model's chunk rule picks for a prime T above 64 (e.g. 293), and the two
+# draws of jamba's own init at the ends of the decay range (see _inputs)
 CASES = [
-    (1, 64, 32, 4, 32, 32, False, "reference case 1"),
-    (2, 128, 64, 8, 32, 32, False, "reference case 2"),
-    (2, 64, 96, 16, 16, 48, False, "reference case 3"),
-    (1, 32, 16, 4, 16, 16, True, "nonzero state carry"),
-    (2, 37, 24, 4, 1, 24, True, "chunk 1, prime T"),
+    (1, 64, 32, 4, 32, 32, False, "reference", "reference case 1"),
+    (2, 128, 64, 8, 32, 32, False, "reference", "reference case 2"),
+    (2, 64, 96, 16, 16, 48, False, "reference", "reference case 3"),
+    (1, 32, 16, 4, 16, 16, True, "reference", "nonzero state carry"),
+    (2, 37, 24, 4, 1, 24, True, "reference", "chunk 1, prime T"),
+    (1, 256, 32, 16, 64, 32, True, "slow decay", "slow decay"),
+    (2, 64, 24, 16, 16, 24, True, "deep underflow", "deep underflow"),
 ]
 
 
-def _inputs(b, t, di, n, seed, nonzero_h0=False):
-    """(dt, B, C, A, x, h0) as float32 numpy arrays: dt = softplus of a
-    normal, A = -exp(0.5 * normal), as the reference's tests draw them."""
+def _inputs(b, t, di, n, seed, nonzero_h0=False, draw="reference"):
+    """(dt, B, C, A, x, h0) as float32 numpy arrays.
+
+    ``reference``: dt = softplus of a normal, A = -exp(0.5 * normal), as the
+    reference's tests draw them. ``slow decay``: jamba's init
+    (``repro/models/ssm.py``): A = -(1..N) in every channel and dt
+    log-uniform in [1e-3, 1e-1], as ``dt_bias_init`` makes it, so
+    exp(dt * A) is up to 0.999 and a relative error in it grows about
+    1000-fold in the state. ``deep underflow``: A = -(1..N) and the
+    reference's dt times 30, so dt * |A| * log2(e) > 127 (past float32's
+    smallest exponent) for about 70% of the (t, d, n); x is divided by 30 so
+    that dt * x keeps the reference draw's size and the tolerance measures
+    rounding, not the size of the outputs."""
     rng = np.random.default_rng(seed)
     dt = np.logaddexp(rng.standard_normal((b, t, di)), 0.0)
     bm, cm = rng.standard_normal((b, t, n)), rng.standard_normal((b, t, n))
     a = -np.exp(rng.standard_normal((di, n)) * 0.5)
     x = rng.standard_normal((b, t, di))
     h0 = rng.standard_normal((b, di, n)) if nonzero_h0 else np.zeros((b, di, n))
+    if draw == "slow decay":
+        a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (di, 1))
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(1e-1), (b, t, di)))
+    elif draw == "deep underflow":
+        a = -np.tile(np.arange(1, n + 1, dtype=np.float64), (di, 1))
+        dt, x = dt * 30.0, x / 30.0
+    else:
+        assert draw == "reference", draw
     return tuple(v.astype(np.float32) for v in (dt, bm, cm, a, x, h0))
 
 
@@ -45,9 +70,11 @@ def _close_both_ways(got, want):
     np.testing.assert_allclose(want, got, atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("b,t,di,n,chunk,dblk,nonzero_h0,label", CASES, ids=[c[-1] for c in CASES])
-def test_plain_twin_matches_pallas_kernel_and_oracle(b, t, di, n, chunk, dblk, nonzero_h0, label):
-    arrays = _inputs(b, t, di, n, seed=di + n + t, nonzero_h0=nonzero_h0)
+@pytest.mark.parametrize("b,t,di,n,chunk,dblk,nonzero_h0,draw,label", CASES,
+                         ids=[c[-1] for c in CASES])
+def test_plain_twin_matches_pallas_kernel_and_oracle(b, t, di, n, chunk, dblk, nonzero_h0, draw,
+                                                     label):
+    arrays = _inputs(b, t, di, n, seed=di + n + t, nonzero_h0=nonzero_h0, draw=draw)
     want_y, want_h = pallas_mamba(*(jnp.asarray(v) for v in arrays), chunk=chunk, d_block=dblk)
     got_y, got_h = ops.mamba_chunk_scan(*(torch.from_numpy(v) for v in arrays), chunk=chunk,
                                         d_block=dblk)
@@ -93,6 +120,57 @@ def test_chunk_prefix_is_the_sequential_recurrence():
         h, prod = da[:, i] * h + dbx[:, i], prod * da[:, i]
         torch.testing.assert_close(acc_b[:, i], h, atol=1e-6, rtol=1e-6)
         torch.testing.assert_close(acc_a[:, i], prod, atol=1e-6, rtol=1e-6)
+
+
+def test_draws_reach_the_decay_range_they_name():
+    """Slow decay keeps exp(dt * A) up to 0.999 for n = 1; deep underflow
+    puts dt * |A| * log2(e) past 127 for most (t, d, n)."""
+    dt, *_, a, _, _ = _inputs(1, 256, 32, 16, seed=0, draw="slow decay")
+    da = np.exp(dt[..., None] * a)
+    assert 1e-3 <= dt.min() and dt.max() <= 1e-1 and da.max() > 0.998
+    dt, *_, a, _, _ = _inputs(2, 64, 24, 16, seed=1, draw="deep underflow")
+    assert (dt[..., None] * -a * np.log2(np.e) > 127).mean() > 0.6
+
+
+def _poly_exp2(source: str):
+    """The kernel's exp2_poly, read from its source and evaluated in float32
+    with fused multiply-adds (each product exact in float64, one rounding)."""
+    body = re.search(r"float exp2_poly\(float x\) \{(.*?)\n\}", source, re.S).group(1)
+    clamp = float(re.search(r"fmaxf\(x, (-?[0-9.]+)f\)", body).group(1))
+    lead = float(re.search(r"float p = ([0-9.e+-]+)f;", body).group(1))
+    coeffs = [float(c) for c in re.findall(r"p = fmaf\(p, f, ([0-9.e+-]+)f\);", body)]
+    f32 = np.float32
+
+    def fma(u, v, w):
+        return (u.astype(np.float64) * v + w).astype(f32)
+
+    def exp2(x):
+        x = np.maximum(x.astype(f32), f32(clamp))
+        t = x + f32(12582912.0)
+        f = x - (t - f32(12582912.0))
+        p = np.full_like(f, f32(lead))
+        for c in coeffs:
+            p = fma(p, f, f32(c))
+        return (p.view(np.int32) + (t.view(np.int32) << 23)).view(f32)
+
+    return exp2, clamp, len(coeffs)
+
+
+def test_fast_exp2_polynomial_in_the_kernel_is_as_accurate_as_ex2_approx():
+    """The FMA-pipe exponential of csrc/mamba_scan.cu: degree 5, relative
+    error at most 2^-22 (ex2.approx's) on [-125, 0], exactly 1 at 0, and a
+    clamp that keeps the exponent field from wrapping far below -127."""
+    exp2, clamp, degree = _poly_exp2(ms.SOURCE.read_text())
+    assert degree == 5 and clamp == -125.0
+    rng = np.random.default_rng(0)
+    x = np.concatenate([-rng.uniform(0, 125, 1_000_000), -rng.uniform(0, 1e-2, 100_000),
+                        -np.linspace(0, 125, 250_001)]).astype(np.float32)
+    want = np.exp2(x.astype(np.float64))
+    rel = np.abs(exp2(x) / want - 1.0)
+    assert rel.max() <= 2.0**-22, rel.max()
+    assert exp2(np.float32([0.0]))[0] == 1.0
+    deep = exp2(np.float32([-125.0, -126.5, -200.0, -3.4e38]))
+    assert np.all(deep == np.float32(2.0**-125)), deep  # finite, tiny, never wrapped
 
 
 def test_cpu_tensors_never_launch_the_kernel():
@@ -156,3 +234,62 @@ def test_cuda_kernel_raises_on_what_it_does_not_take():
         ms.mamba_scan_cuda(dt[:, :0], bm[:, :0], cm[:, :0], a, x[:, :0], h0)
     with pytest.raises(ValueError, match="disagree"):
         ms.mamba_scan_cuda(dt, bm, cm, a, x, h0[:, :4])
+
+
+# (B, T, DI, N, draw, x dtype): jamba's decay range at both ends in float32,
+# and x in bfloat16 (cast on load) at a DI that takes the 16-byte copies and
+# at a ragged one that does not
+CUDA_DRAW_CASES = [
+    (1, 2048, 256, 16, "slow decay", torch.float32),
+    (2, 300, 256, 16, "deep underflow", torch.float32),
+    (2, 300, 256, 16, "slow decay", torch.bfloat16),
+    (2, 64, 100, 16, "reference", torch.bfloat16),
+    (1, 37, 40, 5, "deep underflow", torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,t,di,n,draw,x_dtype", CUDA_DRAW_CASES,
+                         ids=[f"{c[4]}-{str(c[5])[6:]}-DI{c[2]}" for c in CUDA_DRAW_CASES])
+def test_cuda_kernel_matches_plain_twin_across_the_decay_range(b, t, di, n, draw, x_dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    arrays = _inputs(b, t, di, n, seed=t + di + n, nonzero_h0=True, draw=draw)
+    dt, bm, cm, a, x, h0 = (torch.from_numpy(v) for v in arrays)
+    x = x.to(x_dtype)
+    got_y, got_h = ms.mamba_scan_cuda(*(v.cuda() for v in (dt, bm, cm, a, x, h0)))
+    torch.cuda.synchronize()
+    want_y, want_h = ms.mamba_scan_plain(dt, bm, cm, a, x, h0, chunk=t, d_block=di)
+    assert torch.isfinite(got_y).all() and torch.isfinite(got_h).all()
+    np.testing.assert_allclose(got_y.cpu().numpy(), want_y.numpy(), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_h.cpu().numpy(), want_h.numpy(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("di", [256, 100])
+def test_cuda_bf16_x_gives_the_bits_of_x_float(di):
+    """bf16 -> f32 is exact, so casting on load changes nothing: the same
+    bits as the wrapper's input cast to float32 first (DI = 256 stages by
+    16-byte copies, DI = 100 by plain loads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt, bm, cm, a, x, h0 = (torch.from_numpy(v).cuda()
+                            for v in _inputs(2, 45, di, 16, seed=di, nonzero_h0=True))
+    xb = x.bfloat16()
+    y1, h1 = ops.mamba_chunk_scan(dt, bm, cm, a, xb, h0)
+    y2, h2 = ops.mamba_chunk_scan(dt, bm, cm, a, xb.float(), h0)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_x_in_float32_or_bf16_only_and_keeps_four_blocks_per_sm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt, bm, cm, a, x, h0 = (torch.from_numpy(v).cuda() for v in _inputs(1, 16, 8, 4, seed=2))
+    with pytest.raises(TypeError, match="bfloat16"):
+        ms.mamba_scan_cuda(dt, bm, cm, a, x.half(), h0)
+    with pytest.raises(TypeError, match="float32"):
+        ms.mamba_scan_cuda(dt, bm.bfloat16(), cm, a, x, h0)
+    for x_dtype in (torch.float32, torch.bfloat16):
+        assert ms.occupancy(16, x_dtype) >= 4  # 512 blocks at jamba's width run in one wave
