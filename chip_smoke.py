@@ -187,6 +187,25 @@ def device_ms(fn, iters: int) -> float:
     return sum(e.self_device_time_total / e.count for e in events if e.count) / 1e3
 
 
+def timed(fn, warmup: int, iters: int, dev_iters: int, bound_ms: float,
+          what: str) -> tuple[float, float]:
+    """(``cuda_ms``, ``device_ms``) of ``fn``. The device time is the mean
+    of two profiles, and all is measured again (at most five times) until
+    the two agree within 5% and both lie between the bound and the events
+    time (with 5% for noise): a profile that kept a launch's count but lost
+    part of its time reads below what the card did, and one that kept stray
+    time reads above the events' wall time."""
+    for _ in range(5):
+        events_ms = cuda_ms(fn, warmup, iters)
+        devs = [device_ms(fn, dev_iters) for _ in range(2)]
+        if bound_ms <= min(devs) and max(devs) <= min(events_ms * 1.05, min(devs) * 1.05):
+            return events_ms, sum(devs) / 2
+        print(f"[time] {what}: device {devs[0]:.4f} and {devs[1]:.4f} ms disagree, or lie "
+              f"outside [bound {bound_ms:.4f} ms, 1.05 x events {events_ms:.4f} ms]; measuring "
+              f"again")
+    check(False, f"{what}: no two device times that agree between the bound and the events time")
+
+
 def smi(query: str, units: bool = False) -> str:
     """``nvidia-smi --query-gpu=<query>`` for the first card, as CSV without
     a header (and without units unless asked)."""
@@ -565,10 +584,10 @@ def phase_wkv_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
         check(torch.allclose(out, ref_out, atol=WKV_ATOL, rtol=WKV_RTOL)
               and torch.allclose(s_final, ref_s, atol=WKV_ATOL, rtol=WKV_RTOL),
               f"WKV timing shape {label} disagrees: {err}")
-        kernel_ms = cuda_ms(lambda: wkv.rwkv6_cuda(*args), 3, 20)
-        kernel_dev = device_ms(lambda: wkv.rwkv6_cuda(*args), 20)
-        plain_ms = cuda_ms(lambda: wkv.rwkv6_plain(*args, chunk=chunk), 1, 3)
         t_ops, ops, t_bytes, nbytes = wkv_bound(b * h, t, k, k, chunk)
+        kernel_ms, kernel_dev = timed(lambda: wkv.rwkv6_cuda(*args), 3, 20, 20,
+                                      max(t_ops, t_bytes), f"WKV {label}")
+        plain_ms = cuda_ms(lambda: wkv.rwkv6_plain(*args, chunk=chunk), 1, 3)
         print(f"[time] WKV {label}: B={b} T={t} H={h} K=V={k} chunk={chunk} f32: kernel "
               f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms, {kernel_dev / t * 1e3:.3f} us "
               f"per step), plain "
@@ -627,10 +646,10 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
         args = mamba_inputs(b, t, di, n, gen, nonzero_h0=False, x_dtype=x_dtype)
         errs, ok = mamba_against_plain(args, chunk)
         check(ok, f"Mamba timing shape {label} disagrees: {errs}")
-        kernel_ms = cuda_ms(lambda: ms.mamba_scan_cuda(*args), 3, 20)
-        kernel_dev = device_ms(lambda: ms.mamba_scan_cuda(*args), 20)
-        plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args, chunk=chunk, d_block=512), 1, 2)
         t_ops, ops, t_bytes, nbytes, exps = mamba_bound(b, t, di, n, x_dtype.itemsize)
+        kernel_ms, kernel_dev = timed(lambda: ms.mamba_scan_cuda(*args), 3, 20, 20,
+                                      max(t_ops, t_bytes), f"Mamba {label}")
+        plain_ms = cuda_ms(lambda: ms.mamba_scan_plain(*args, chunk=chunk, d_block=512), 1, 2)
         t_mufu = mufu_floor_ms(exps)
         print(f"[time] Mamba {label}: B={b} T={t} DI={di} N={n} chunk={chunk} x "
               f"{str(x_dtype).split('.')[-1]}: kernel {kernel_ms:.4f} ms (device {kernel_dev:.4f} "
@@ -678,7 +697,12 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
     err = (out.float() - ref.float()).abs().max().item()
     check(torch.allclose(out.float(), ref.float(), atol=3e-2, rtol=3e-2),
           f"flash timing shape {label} disagrees: {err}")
-    kernel_ms = cuda_ms(lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 3, 20)
+    flops = 4 * b * h * d * s * (s + 1) / 2  # q.k and p.v over the causal pairs
+    nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    kernel_ms, kernel_dev = timed(
+        lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 3, 20, 50,
+        max(t_ops, t_bytes), f"flash {label}")
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, group=group, causal=True), 1,
                        plain_iters)
     q4, k4, v4 = q.view(b, h, s, d), k.view(b, kv, s, d), v.view(b, kv, s, d)
@@ -687,12 +711,7 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
         return torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True, enable_gqa=group > 1)
 
-    library_ms = cuda_ms(sdpa, 3, 20)
-    kernel_dev = device_ms(lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 50)
-    library_dev = device_ms(sdpa, 50)
-    flops = 4 * b * h * d * s * (s + 1) / 2  # q.k and p.v over the causal pairs
-    nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    library_ms, library_dev = timed(sdpa, 3, 20, 50, max(t_ops, t_bytes), f"sdpa {label}")
     print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 causal: kernel "
           f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms (device {library_dev:.4f} ms); bound {max(t_ops, t_bytes):.4f} ms "

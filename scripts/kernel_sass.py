@@ -13,14 +13,12 @@ asynchronous copies (``BAR``, ``DEPBAR`` for ``cp.async.wait_group``,
 ``SYNCS`` for an ``mbarrier``). For the Mamba scan it also prints counts per
 time step (each step stores one y value, so a loop's counts over its
 ``STG`` count), of the main loop (staging and the tile's steps) and of the
-shortest loop that stores y (one step and its loop overhead). The flash-attention library holds one bf16
-kernel per padded head dim and the Mamba scan one per state size (and x
-type); only ``--head-dims`` (default 80 and 128) and N = 16 are shown.
-``--mamba-source`` reads another copy of the Mamba scan's source (an
-earlier commit's, say) in place of the checkout's. Counts are static: a
-branch that runs on few tiles (the causal mask, the staging fallback for
-unaligned rows, the ragged last tile) counts as much as one that runs on
-every tile.
+shortest loop that stores y (one step and its loop overhead). The
+flash-attention library holds one bf16 kernel per padded head dim and the
+Mamba scan one per state size (and x type); only ``--head-dims`` (default
+80 and 128) and N = 16 are shown. Counts are static: a branch that runs on
+few tiles (the causal mask, the staging fallback for unaligned rows, the
+ragged last tile) counts as much as one that runs on every tile.
 """
 
 from __future__ import annotations
@@ -102,10 +100,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--head-dims", type=int, nargs="*", default=[80, 128])
     parser.add_argument("--top", type=int, default=16)
-    parser.add_argument("--mamba-source", type=Path, default=None)
     args = parser.parse_args()
 
-    from repro_torch.kernels import build as kbuild
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import rwkv6 as wkv
@@ -113,10 +109,7 @@ def main() -> int:
     keep = {fa: {f"ILi{(d + 15) // 16}E" for d in args.head_dims}, ms: {"ILi16E"}, wkv: {""}}
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for mod in (fa, wkv, ms):
-        if mod is ms and args.mamba_source is not None:
-            path = kbuild.build("mamba_scan_other", args.mamba_source.resolve()).path
-        else:
-            path = mod.build().path
+        path = mod.build().path
         sass = subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True, text=True,
                               check=True).stdout
         for block in sass.split("Function : ")[1:]:

@@ -25,23 +25,18 @@
 // bound. Instruction issue comes next: the design spends about 6 issued
 // instructions per (t, d, n) where the first one spent about 15:
 //   * A is pre-scaled by log2(e) once per thread, and 2^(dt*A2) comes from
-//     ex2.approx (a few ulp; the argument is never positive, dt > 0, A < 0);
-//     with MAMBA_POLY_EVERY = k > 0 the state indices n with n % k == k - 1
-//     take exp2_poly below on the FMA pipe instead (as accurate; on the
-//     H100 every such share measured slower, since issue, not MUFU, is
-//     what the moved exponentials land on);
+//     ex2.approx (a few ulp; the argument is never positive, dt > 0, A < 0;
+//     below -126 the result flushes to 0, where the exact one is < 2^-126);
 //   * per (t, d, n): one multiply for the exponent, the exponential, dt*x*B
 //     (dt*x once per (t, d)), one FMA into h, one FMA into y; B_t and C_t
 //     are read from shared memory as float4 broadcasts, and the sum over N
 //     runs as four partial sums and a tree;
 //   * blocks of 128 channels of one batch row (coalesced along DI; a ragged
-//     last block is masked), one thread per channel (MAMBA_LANES = 2 splits
-//     N over two threads and sums y by a shuffle: more warps, but more
-//     instructions and measured slower). Tiles of TILE_T steps of dt, x, B
-//     and C are staged by cp.async in a ring of STAGES tiles: tiles k + 1
-//     to k + 3 land while tile k runs, with one barrier per tile. At most 128
-//     registers and 36,864 bytes of shared memory keep 4 blocks resident on
-//     each SM, so B=4 at DI=16384 (512 blocks) runs in one wave;
+//     last block is masked), one thread per channel. Tiles of TILE_T steps
+//     of dt, x, B and C are staged by cp.async in a ring of STAGES tiles:
+//     tiles k + 1 to k + 3 land while tile k runs, with one barrier per tile.
+//     At most 128 registers and 36,864 bytes of shared memory keep 4 blocks
+//     resident on each SM, so B=4 at DI=16384 (512 blocks) runs in one wave;
 //   * no atomics and a fixed order of operations, so a run repeats bit for
 //     bit, and a bfloat16 x gives the same bits as the same x in float32.
 
@@ -51,73 +46,23 @@
 
 #include "ptx.cuh"
 
-// State indices n with n % MAMBA_POLY_EVERY == MAMBA_POLY_EVERY - 1 take
-// their exponential on the FMA pipe (8: n = 7 and 15 of 16); 0, the
-// default, takes none. scripts/mamba_scan_variants.py times the shares.
-#ifndef MAMBA_POLY_EVERY
-#define MAMBA_POLY_EVERY 0
-#endif
-
-// Threads per channel: 1 keeps all N states of a channel in one thread; 2
-// splits them, and a shuffle sums y (then at most 64 registers a thread).
-#ifndef MAMBA_LANES
-#define MAMBA_LANES 1
-#endif
-
-// The ring: STAGES tiles of TILE_T time steps (a power of two), STAGES - 1
-// of them in flight while one is computed.
-#ifndef MAMBA_TILE_T
-#define MAMBA_TILE_T 8
-#endif
-#ifndef MAMBA_STAGES
-#define MAMBA_STAGES 4
-#endif
-
 namespace {
 
-constexpr int LANES = MAMBA_LANES;    // threads per channel, each with NP / LANES states
-constexpr int CHANNELS = 128;         // channels per block
-constexpr int THREADS = CHANNELS * LANES;
-constexpr int TILE_T = MAMBA_TILE_T;  // time steps per staged tile
-constexpr int STAGES = MAMBA_STAGES;  // tiles in the ring: STAGES - 1 in flight
-constexpr int MAX_N = 16;             // largest state size
+constexpr int CHANNELS = 128;  // channels per block, one thread each
+constexpr int TILE_T = 8;      // time steps per staged tile
+constexpr int STAGES = 4;      // tiles in the ring: STAGES - 1 in flight
+constexpr int MAX_N = 16;      // largest state size
 // Resident blocks per SM the register budget keeps: 512 channels an SM, so
-// B=4 at DI=16384 (65,536 channels on 132 SMs) runs in one wave.
+// B=4 at DI=16384 (65,536 channels on 132 SMs) runs in one wave. A 16-step
+// tile, unrolled, spills at this budget.
 constexpr int MIN_BLOCKS = 4;
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(LANES == 1 || LANES == 2, "one or two threads per channel");
-
-// 2^x for x <= 0 on the FMA pipe: x is clamped at -125 (so the result stays
-// a normal float: 2^-125 where ex2.approx would give 0 or a subnormal flushed
-// to 0), split as x = j + f with j = rint(x) and f in [-0.5, 0.5], 2^f by a
-// degree-5 polynomial fitted for least relative error with p(0) = 1, and j
-// added to the exponent bits. Relative error at most 1.7e-7 (2^-22.5) in
-// float32, as the CPU test that evaluates these coefficients checks.
-__device__ __forceinline__ float exp2_poly(float x) {
-  x = fmaxf(x, -125.f);
-  const float t = x + 12582912.f;       // 1.5 * 2^23: rint(x) lands in the low bits
-  const float f = x - (t - 12582912.f);
-  float p = 1.326472731307149e-3f;
-  p = fmaf(p, f, 9.671512991189957e-3f);
-  p = fmaf(p, f, 5.550733581185341e-2f);
-  p = fmaf(p, f, 2.4022242426872253e-1f);
-  p = fmaf(p, f, 6.931470036506653e-1f);
-  p = fmaf(p, f, 1.f);
-  // The bits of t are 0x4B400000 + j; shifted by 23 only j << 23 is left.
-  return __int_as_float(__float_as_int(p) + (__float_as_int(t) << 23));
-}
-
-// Whether state index j takes exp2_poly (see MAMBA_POLY_EVERY).
-__host__ __device__ constexpr bool poly_index(int j) {
-  return MAMBA_POLY_EVERY > 0 && j % (MAMBA_POLY_EVERY > 0 ? MAMBA_POLY_EVERY : 1) ==
-                                     MAMBA_POLY_EVERY - 1;
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// One staged tile; NP is N rounded up to a multiple of 4 * LANES, and the
-// padding columns of b and c hold zeros.
+// One staged tile; NP is N rounded up to a multiple of 4, and the padding
+// columns of b and c hold zeros.
 template <int NP, typename XT>
 struct __align__(16) Tile {
   float dt[TILE_T][CHANNELS];
@@ -127,36 +72,33 @@ struct __align__(16) Tile {
 };
 
 template <int NP, typename XT>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(CHANNELS, MIN_BLOCKS)
 mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
                       const float* __restrict__ bmat, const float* __restrict__ cmat,
                       const float* __restrict__ a, const float* __restrict__ h0,
                       float* __restrict__ y, float* __restrict__ h_out, int t_len, int di,
                       int n, bool vec) {
-  constexpr int NPL = NP / LANES;  // states of one thread
-  static_assert(NPL % 4 == 0, "float4 reads of B and C");
+  static_assert(NP % 4 == 0, "float4 reads of B and C");
   __shared__ Tile<NP, XT> ring[STAGES];
 
   const int tid = threadIdx.x;
-  const int ch = tid / LANES, lane = tid % LANES;
   const int d0 = blockIdx.x * CHANNELS;
-  const int d = d0 + ch;
+  const int d = d0 + tid;
   const size_t row0 = (size_t)blockIdx.y * t_len;  // index of (b, t = 0) in (B*T)
   const bool live = d < di;
 
-  float a2[NPL], h[NPL];
+  float a2[NP], h[NP];
 #pragma unroll
-  for (int i = 0; i < NPL; ++i) {
-    const int j = lane * NPL + i;
+  for (int j = 0; j < NP; ++j) {
     const bool on = live && j < n;
-    a2[i] = on ? a[(size_t)d * n + j] * LOG2E : 0.f;  // padding: 2^0 * 0 + dtx * 0
-    h[i] = on ? h0[((size_t)blockIdx.y * di + d) * n + j] : 0.f;
+    a2[j] = on ? a[(size_t)d * n + j] * LOG2E : 0.f;  // padding: 2^0 * 0 + dtx * 0
+    h[j] = on ? h0[((size_t)blockIdx.y * di + d) * n + j] : 0.f;
   }
 
   // Each thread's copy slots, the same in every tile. dt and x: 16-byte
   // pieces of a tile row, rows r, r + ROWS, ...; B and C: element (s, j).
-  constexpr int DT_CH = CHANNELS * 4 / 16, DT_ROWS = THREADS / DT_CH;
-  constexpr int XE = 16 / sizeof(XT), X_CH = CHANNELS / XE, X_ROWS = THREADS / X_CH;
+  constexpr int DT_CH = CHANNELS * 4 / 16, DT_ROWS = CHANNELS / DT_CH;
+  constexpr int XE = 16 / sizeof(XT), X_CH = CHANNELS / XE, X_ROWS = CHANNELS / X_CH;
   static_assert((STAGES & (STAGES - 1)) == 0, "a ring of a power of two");
   const int dt_r = tid / DT_CH, dt_c = tid % DT_CH * 4;
   const int x_r = tid / X_CH, x_c = tid % X_CH * XE;
@@ -164,10 +106,10 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
   const int x_bytes = max(0, min(16, (di - d0 - x_c) * (int)sizeof(XT)));
   const float* dt_src = dt + (row0 + dt_r) * di + d0 + dt_c;
   const XT* x_src = x + (row0 + x_r) * di + d0 + x_c;
-  constexpr int BC_PASSES = (TILE_T * NP + THREADS - 1) / THREADS;
+  constexpr int BC_PASSES = (TILE_T * NP + CHANNELS - 1) / CHANNELS;
 #pragma unroll
   for (int p = 0; p < BC_PASSES; ++p) {  // padding columns stay zero
-    const int s = (tid + p * THREADS) / NP, j = (tid + p * THREADS) % NP;
+    const int s = (tid + p * CHANNELS) / NP, j = (tid + p * CHANNELS) % NP;
     if (s < TILE_T && j >= n) {
 #pragma unroll
       for (int st = 0; st < STAGES; ++st) ring[st].b[s][j] = ring[st].c[s][j] = 0.f;
@@ -195,16 +137,16 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
           ptx::cp_async_16(&tile.x[s][x_c],
                            x_bytes ? x_src + (size_t)(t0 + p * X_ROWS) * di : x, x_bytes);
       }
-    } else if (lane == 0) {  // any other DI or alignment: plain loads of the channel's column
+    } else {  // any other DI or alignment: plain loads of the channel's column
       for (int s = 0; s < steps; ++s) {
         const size_t g = (row0 + t0 + s) * di + d;
-        tile.dt[s][ch] = live ? dt[g] : 0.f;
-        tile.x[s][ch] = live ? x[g] : XT(0.f);
+        tile.dt[s][tid] = live ? dt[g] : 0.f;
+        tile.x[s][tid] = live ? x[g] : XT(0.f);
       }
     }
 #pragma unroll
     for (int p = 0; p < BC_PASSES; ++p) {
-      const int s = (tid + p * THREADS) / NP, j = (tid + p * THREADS) % NP;
+      const int s = (tid + p * CHANNELS) / NP, j = (tid + p * CHANNELS) % NP;
       if (j < n && s < steps) {
         const size_t g = (row0 + t0 + s) * n + j;
         ptx::cp_async_4(&tile.b[s][j], bmat + g, 4);
@@ -213,31 +155,26 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
     }
   };
 
-  // One time step from the tile: the state update and y_t[d] (in every
-  // lane of the channel).
+  // One time step from the tile: the state update and y_t[d].
   auto step = [&](const Tile<NP, XT>& tile, int s) -> float {
-    const float dtv = tile.dt[s][ch];
-    const float dtx = dtv * to_float(tile.x[s][ch]);
-    const float4* bv = reinterpret_cast<const float4*>(tile.b[s] + lane * NPL);
-    const float4* cv = reinterpret_cast<const float4*>(tile.c[s] + lane * NPL);
+    const float dtv = tile.dt[s][tid];
+    const float dtx = dtv * to_float(tile.x[s][tid]);
+    const float4* bv = reinterpret_cast<const float4*>(tile.b[s]);
+    const float4* cv = reinterpret_cast<const float4*>(tile.c[s]);
     float part[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int q = 0; q < NPL / 4; ++q) {
+    for (int q = 0; q < NP / 4; ++q) {
       const float4 bq = bv[q], cq = cv[q];
       const float bb[4] = {bq.x, bq.y, bq.z, bq.w}, cc[4] = {cq.x, cq.y, cq.z, cq.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int i = 4 * q + r;
-        const float e = dtv * a2[i];
-        const float da = poly_index(i) ? exp2_poly(e) : ptx::ex2(e);
+        const float da = ptx::ex2(dtv * a2[i]);
         h[i] = fmaf(da, h[i], dtx * bb[r]);
         part[r] = fmaf(cc[r], h[i], part[r]);
       }
     }
-    float v = (part[0] + part[1]) + (part[2] + part[3]);
-#pragma unroll
-    for (int m = 1; m < LANES; m *= 2) v += __shfl_xor_sync(0xffffffffu, v, m);
-    return v;
+    return (part[0] + part[1]) + (part[2] + part[3]);
   };
 
   const int ntiles = (t_len + TILE_T - 1) / TILE_T;
@@ -246,7 +183,6 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
     stage_tile(k);
     ptx::cp_async_commit();  // an empty group past T keeps the count
   }
-  const bool store = live && lane == 0;
   float* yp = y + row0 * di + d;
   for (int k = 0; k < ntiles; ++k) {
     ptx::cp_async_wait<STAGES - 2>();  // tile k has landed (this thread's copies)
@@ -260,14 +196,14 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
 #pragma unroll
       for (int s = 0; s < TILE_T; ++s) {
         const float v = step(tile, s);
-        if (store) *yp = v;
+        if (live) *yp = v;
         yp += di;
       }
     } else {
 #pragma unroll 1
       for (int s = 0; s < steps; ++s) {
         const float v = step(tile, s);
-        if (store) *yp = v;
+        if (live) *yp = v;
         yp += di;
       }
     }
@@ -276,9 +212,8 @@ mamba_scan_fwd_kernel(const float* __restrict__ dt, const XT* __restrict__ x,
 
   if (live) {
 #pragma unroll
-    for (int i = 0; i < NPL; ++i) {
-      const int j = lane * NPL + i;
-      if (j < n) h_out[((size_t)blockIdx.y * di + d) * n + j] = h[i];
+    for (int j = 0; j < NP; ++j) {
+      if (j < n) h_out[((size_t)blockIdx.y * di + d) * n + j] = h[j];
     }
   }
 }
@@ -298,7 +233,7 @@ struct Launch {
                      reinterpret_cast<uintptr_t>(x) % 16 == 0 && (size_t)di * 4 % 16 == 0 &&
                      (size_t)di * sizeof(XT) % 16 == 0;
     const dim3 grid((di + CHANNELS - 1) / CHANNELS, bsz);
-    mamba_scan_fwd_kernel<NP, XT><<<grid, THREADS, 0, stream>>>(
+    mamba_scan_fwd_kernel<NP, XT><<<grid, CHANNELS, 0, stream>>>(
         dt, static_cast<const XT*>(x), b, c, a, h0, y, h_out, t, di, n, vec);
     return cudaGetLastError();
   }
@@ -311,20 +246,20 @@ struct Occupancy {
   template <int NP, typename XT>
   cudaError_t run() const {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, mamba_scan_fwd_kernel<NP, XT>,
-                                                         THREADS, 0);
+                                                         CHANNELS, 0);
   }
 };
 
 // f.run<NP, XT>() for the instantiation that state size n and x's type take:
-// NP is n rounded up to a multiple of 4 * LANES.
-template <typename F, int NP = 4 * LANES>
+// NP is n rounded up to a multiple of 4.
+template <typename F, int NP = 4>
 cudaError_t dispatch(const F& f, int n, int x_bf16) {
   if constexpr (NP > MAX_N) {
     return cudaErrorInvalidValue;
   } else {
     if (n <= NP)
       return x_bf16 ? f.template run<NP, __nv_bfloat16>() : f.template run<NP, float>();
-    return dispatch<F, NP + 4 * LANES>(f, n, x_bf16);
+    return dispatch<F, NP + 4>(f, n, x_bf16);
   }
 }
 

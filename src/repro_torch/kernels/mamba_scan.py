@@ -12,10 +12,8 @@ from ``h0``, each returning ``(y, h_final)`` in float32:
   in float32, any T and DI, a state size N of 1 to ``MAX_STATE``, and
   raises on anything else. It runs the recurrence step by step, so it
   takes no ``chunk`` or ``d_block``: the Pallas grid's tiling has no
-  counterpart in it. It counts its launches in ``launches``. ``load``
-  builds the same source with other nvcc flags (the kernel's
-  compile-time variants), and ``occupancy`` reports its resident blocks
-  per SM.
+  counterpart in it. It counts its launches in ``launches``, and
+  ``occupancy`` reports its resident blocks per SM.
 * ``mamba_scan_plain`` is the plain-torch twin with the Pallas body's
   numerics, chunk by chunk: ``da = exp(dt·a)``, ``dbx = dt·x·B`` as
   (B, C, DI, N), the in-chunk scan, ``h_all = acc_a·h + acc_b``,
@@ -29,7 +27,7 @@ from pathlib import Path
 
 import torch
 
-from .build import NVCC_FLAGS, KernelBuild
+from .build import KernelBuild
 from .build import build as build_kernel
 
 MAX_STATE = 16
@@ -93,40 +91,33 @@ def mamba_scan_plain(
 _build: KernelBuild | None = None
 
 
-def load(flags: tuple[str, ...] = NVCC_FLAGS) -> KernelBuild:
-    """Compile the kernel with ``flags`` (once per source and flags), load
-    it and declare its C functions. ``build`` is this with the default
-    flags, kept; other flags give a variant of the same source."""
-    kb = build_kernel("mamba_scan", SOURCE, flags)
-    fn = kb.lib.mamba_scan_fwd
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dt x b c
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a h0 y h_out
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bsz t di n
-        ctypes.c_int,  # x_bf16
-        ctypes.c_void_p,  # stream
-    ]
-    fn.restype = ctypes.c_int
-    occ = kb.lib.mamba_scan_occupancy
-    occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    occ.restype = ctypes.c_int
-    return kb
-
-
 def build() -> KernelBuild:
     """Compile the kernel (once per source and flags) and load it."""
     global _build
     if _build is None:
-        _build = load()
+        kb = build_kernel("mamba_scan", SOURCE)
+        fn = kb.lib.mamba_scan_fwd
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # dt x b c
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a h0 y h_out
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bsz t di n
+            ctypes.c_int,  # x_bf16
+            ctypes.c_void_p,  # stream
+        ]
+        fn.restype = ctypes.c_int
+        occ = kb.lib.mamba_scan_occupancy
+        occ.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        occ.restype = ctypes.c_int
+        _build = kb
     return _build
 
 
-def occupancy(n: int, x_dtype: torch.dtype, kernel: KernelBuild | None = None) -> int:
+def occupancy(n: int, x_dtype: torch.dtype) -> int:
     """Resident blocks per SM of the kernel launched for state size ``n``
     and x of ``x_dtype`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     on the current device)."""
     blocks = ctypes.c_int(0)
-    err = (kernel or build()).lib.mamba_scan_occupancy(n, X_DTYPES[x_dtype], ctypes.byref(blocks))
+    err = build().lib.mamba_scan_occupancy(n, X_DTYPES[x_dtype], ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"mamba_scan occupancy query failed: CUDA error {err}")
     return blocks.value
@@ -139,8 +130,6 @@ def mamba_scan_cuda(
     a: torch.Tensor,  # (DI, N) float32
     x: torch.Tensor,  # (B, T, DI) float32 or bfloat16
     h0: torch.Tensor,  # (B, DI, N) float32
-    *,
-    kernel: KernelBuild | None = None,  # a ``load`` of other flags; default ``build()``
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raise on anything it does not take."""
     global launches
@@ -163,7 +152,7 @@ def mamba_scan_cuda(
     dt, bmat, cmat, a, x, h0 = (v.contiguous() for v in args)
     y = torch.empty((bsz, t, di), dtype=torch.float32, device=dt.device)
     h_out = torch.empty((bsz, di, n), dtype=torch.float32, device=dt.device)
-    fn = (kernel or build()).lib.mamba_scan_fwd
+    fn = build().lib.mamba_scan_fwd
     with torch.cuda.device(dt.device):
         err = fn(
             dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), a.data_ptr(),

@@ -112,7 +112,7 @@ def test_kernels_bind_through_the_shared_build(module, name, symbol, nargs, monk
             setattr(self, attr, types.SimpleNamespace())
             return getattr(self, attr)
 
-    def fake_build(kernel_name, source, *flags):
+    def fake_build(kernel_name, source):
         calls.append((kernel_name, source))
         return kbuild.KernelBuild(FakeLib(), Path("unused.so"), None, "")
 

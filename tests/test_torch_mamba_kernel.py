@@ -1,12 +1,9 @@
 """Mamba-1 selective scan: the port's plain twin against the reference's
 Pallas kernel (interpret mode on the CPU) and its step-by-step oracle, also
-at both ends of jamba's decay range; the FMA-pipe exponential of the CUDA
-source, evaluated on the CPU; the CUDA kernel against the plain twin on a
-card (``-m cuda``), with x in float32 and bfloat16. Inputs come from numpy
-seeds; tolerances are those of ``tests/test_kernels.py`` (atol 1e-4, rtol
-1e-3)."""
-
-import re
+at both ends of jamba's decay range; the CUDA kernel against the plain
+twin on a card (``-m cuda``), with x in float32 and bfloat16. Inputs come
+from numpy seeds; tolerances are those of ``tests/test_kernels.py`` (atol
+1e-4, rtol 1e-3)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -132,45 +129,15 @@ def test_draws_reach_the_decay_range_they_name():
     assert (dt[..., None] * -a * np.log2(np.e) > 127).mean() > 0.6
 
 
-def _poly_exp2(source: str):
-    """The kernel's exp2_poly, read from its source and evaluated in float32
-    with fused multiply-adds (each product exact in float64, one rounding)."""
-    body = re.search(r"float exp2_poly\(float x\) \{(.*?)\n\}", source, re.S).group(1)
-    clamp = float(re.search(r"fmaxf\(x, (-?[0-9.]+)f\)", body).group(1))
-    lead = float(re.search(r"float p = ([0-9.e+-]+)f;", body).group(1))
-    coeffs = [float(c) for c in re.findall(r"p = fmaf\(p, f, ([0-9.e+-]+)f\);", body)]
-    f32 = np.float32
-
-    def fma(u, v, w):
-        return (u.astype(np.float64) * v + w).astype(f32)
-
-    def exp2(x):
-        x = np.maximum(x.astype(f32), f32(clamp))
-        t = x + f32(12582912.0)
-        f = x - (t - f32(12582912.0))
-        p = np.full_like(f, f32(lead))
-        for c in coeffs:
-            p = fma(p, f, f32(c))
-        return (p.view(np.int32) + (t.view(np.int32) << 23)).view(f32)
-
-    return exp2, clamp, len(coeffs)
-
-
-def test_fast_exp2_polynomial_in_the_kernel_is_as_accurate_as_ex2_approx():
-    """The FMA-pipe exponential of csrc/mamba_scan.cu: degree 5, relative
-    error at most 2^-22 (ex2.approx's) on [-125, 0], exactly 1 at 0, and a
-    clamp that keeps the exponent field from wrapping far below -127."""
-    exp2, clamp, degree = _poly_exp2(ms.SOURCE.read_text())
-    assert degree == 5 and clamp == -125.0
-    rng = np.random.default_rng(0)
-    x = np.concatenate([-rng.uniform(0, 125, 1_000_000), -rng.uniform(0, 1e-2, 100_000),
-                        -np.linspace(0, 125, 250_001)]).astype(np.float32)
-    want = np.exp2(x.astype(np.float64))
-    rel = np.abs(exp2(x) / want - 1.0)
-    assert rel.max() <= 2.0**-22, rel.max()
-    assert exp2(np.float32([0.0]))[0] == 1.0
-    deep = exp2(np.float32([-125.0, -126.5, -200.0, -3.4e38]))
-    assert np.all(deep == np.float32(2.0**-125)), deep  # finite, tiny, never wrapped
+def test_cpu_bf16_x_gives_the_bits_of_x_float():
+    """On the CPU, too, a bfloat16 x is taken as it is and cast to float32
+    exactly: the same bits as ``x.float()``."""
+    dt, bm, cm, a, x, h0 = (torch.from_numpy(v)
+                            for v in _inputs(2, 32, 24, 16, seed=3, nonzero_h0=True))
+    xb = x.bfloat16()
+    y1, h1 = ops.mamba_chunk_scan(dt, bm, cm, a, xb, h0, chunk=16)
+    y2, h2 = ops.mamba_chunk_scan(dt, bm, cm, a, xb.float(), h0, chunk=16)
+    assert y1.dtype == torch.float32 and torch.equal(y1, y2) and torch.equal(h1, h2)
 
 
 def test_cpu_tensors_never_launch_the_kernel():
