@@ -23,7 +23,30 @@ Phases, each of which exits non-zero when it fails:
      greedy output must repeat exactly;
   5. granite, rwkv6 and jamba (smoke, f32) on the card (kernels) against
      the CPU (plain twins) on the same weights: logits and greedy tokens;
-  6. each kernel, its plain twin and, where there is one, a PyTorch call
+  6. ``[grad]``: flash attention under grad (``FlashAttentionFn``): one
+     kernel launch per forward, the kernel's own output, and dq/dk/dv
+     against autograd through the plain twin on the card; the WKV and scan
+     kernels refuse to run under grad; the backward's recomputation timed
+     at stablelm's training shape;
+  7. ``[train-full]``: stablelm-3b at full width and depth (bf16, remat
+     "full", AdamW, B=4, S=1024, 2 microbatches) takes 3 steps of
+     ``make_train_step``: finite losses and grad norms, a first CE near
+     ln V, every parameter leaf changed, and exactly 128 flash attention
+     launches a step (32 layers, forward and recomputation, per
+     microbatch); step time, tokens/s, peak memory, a profiled step's
+     device busy time and idle share, and a breakdown (forward, backward,
+     the recomputation through the twin, the optimizer update);
+  8. ``[continuum]``: the reference's main path on the card at smoke size
+     in float32 through ``runtime.train_loop``: ``prepare_data``, ``train``
+     crashing at step 3 and resuming from ``latest.json``, ``evaluate``, and
+     a ``ServeEngine`` on the restored parameters behind the batch handler;
+     straight and resumed runs agree at atol 1e-6 (deterministic
+     algorithms, in a process of its own with a fixed cuBLAS workspace),
+     and greedy tokens equal those of the in-memory params;
+  9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
+     the same parameters and batches, AdamW and Adafactor, 1 and 2
+     microbatches: loss, grad norm and parameters at ``TRAIN_CROSS_*``;
+ 10. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (the Mamba scan also beside
      the least time of its exponentials on the special-function unit).
@@ -35,6 +58,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -42,6 +66,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -128,6 +153,22 @@ JAMBA_PER_PREFILL = {"mamba_scan": 14, "flash_attention": 2}
 MAMBA_TIMING_SHAPE = (4, 2048, 16384, 16, 64)  # B, T, DI, N, chunk: jamba prefill
 MAMBA_SERVING_SHAPES = {"T=300": (4, 300, 16384, 16, 60), "T=293": (4, 293, 16384, 16, 1)}
 MUFU_PER_CLOCK = 16  # exponentials per clock on each SM (ex2 on the special-function unit)
+
+# [grad]: FLASH_CASES labels whose gradients are checked on the card
+GRAD_CASES = ["MHA", "GQA group 4, D=64", "sliding window 48", "ragged S=300 f32", "bf16",
+              "stablelm B=2 S=1024"]
+# [train-full]: stablelm-3b, B=4, S=1024, 2 microbatches, 3 steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 1024, 2, 3
+# [continuum]: the reference handlers' smoke run, cut to 6 steps of 4 x 64.
+# It turns deterministic algorithms on, and cuBLAS is deterministic only
+# with a fixed workspace, set before CUDA starts: so it runs in a process
+# of its own with this environment, and every other phase runs with the
+# default workspace.
+CONTINUUM_KW = dict(arch="stablelm-3b", steps=6, batch=4, seq_len=64, checkpoint_every=2)
+CONTINUUM_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# [train-cross]: cuda against cpu after 3 smoke f32 steps; the largest
+# differences measured on an H100 were 1.9e-6 (grad norm) and 3.2e-7 (params)
+TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL = 1e-5, 1e-5
 
 
 def check(ok: bool, msg: str) -> None:
@@ -401,7 +442,9 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
     """Serve ``arch`` at a real size; in the first run every kernel of
     ``kernel_modules()`` must launch ``per_prefill[name]`` times per prefill
     (0 for a kernel not named). Returns the launch counts and the stats."""
-    from repro_torch.launch.serve import MemorySink, build_engine, make_requests, serve
+    from repro_torch.launch.serve import build_engine, make_requests, serve
+    from repro_torch.runtime.store import MemoryStore
+    from repro_torch.serve.batcher import result_tokens
     from repro_torch.models import count_params, model_spec
 
     tag = f"[slice {arch}]"
@@ -419,7 +462,7 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
 
     runs = []
     for run in range(2):
-        sink = MemorySink()
+        sink = MemoryStore()
         batches_before = engine.stats["batches"]
         if run == 0:
             for mod in mods.values():
@@ -433,7 +476,7 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
                   f"({cfg.num_layers} layers; want {want})")
             check(prefills > 0 and counts == want,
                   f"kernel launches {counts} on the {arch} path, want {want}")
-        outs = [sink.tokens("serve", r["request_id"]) for r in requests]
+        outs = [result_tokens(sink, "serve", r["request_id"]) for r in requests]
         for o in outs:
             check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
                   f"bad output {o}")
@@ -459,7 +502,8 @@ def breakdown(engine, requests: list[dict], tag: str) -> dict:
     profiler window for the device's busy share and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import MemorySink, serve
+    from repro_torch.launch.serve import serve
+    from repro_torch.runtime.store import MemoryStore
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.batcher import pad_prompts
 
@@ -482,7 +526,7 @@ def breakdown(engine, requests: list[dict], tag: str) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(engine, requests, len(requests), MemorySink())
+        serve(engine, requests, len(requests), MemoryStore())
         wall_s = time.perf_counter() - t0
     kernels = sorted(
         ((e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
@@ -743,6 +787,399 @@ def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     }, serving
 
 
+def grad_fn_names(t: torch.Tensor) -> list[str]:
+    """The autograd nodes behind ``t``, nearest first."""
+    names, seen, todo = [], set(), [t.grad_fn]
+    while todo:
+        node = todo.pop(0)
+        if node is not None and id(node) not in seen:
+            seen.add(id(node))
+            names.append(type(node).__name__)
+            todo += [n for n, _ in node.next_functions]
+    return names
+
+
+def phase_grad() -> dict:
+    """Flash attention under grad on the card: ``ops.flash_attention`` goes
+    through ``FlashAttentionFn``, launches the kernel once and returns its
+    output; dq/dk/dv match autograd through the plain twin on the card.
+    The WKV and scan kernels refuse grad. Returns the worst error and the
+    backward's time at stablelm's training shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rwkv6 as wkv
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = {c[-1]: c for c in FLASH_CASES}
+    worst = 0.0
+    for label in GRAD_CASES:
+        b, s, h, kv, d, window, blk, dtype, atol, rtol, _ = cases[label]
+        q, k, v = (torch.randn((b, s, n, d), generator=gen, device="cuda").to(dtype)
+                   for n in (h, kv, kv))
+        w = torch.randn((b, s, h, d), generator=gen, device="cuda")
+        live = [t.clone().requires_grad_() for t in (q, k, v)]
+        before = fa.launches
+        out = ops.flash_attention(*live, causal=True, window=window)
+        check(fa.launches == before + 1 and "FlashAttentionFnBackward" in grad_fn_names(out),
+              f"{label}: {fa.launches - before} launches, graph {grad_fn_names(out)}")
+        with torch.no_grad():
+            kernel_out = ops.flash_attention(q, k, v, causal=True, window=window)
+        check(torch.equal(out.detach(), kernel_out), f"{label}: the forward is not the kernel's")
+        got = torch.autograd.grad((out.float() * w).sum(), live)
+        check(fa.launches == before + 2, f"{label}: the backward launched the kernel")
+        ref_in = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = plain_bshd(*ref_in, True, window, blk)
+        want = torch.autograd.grad((ref.float() * w).sum(), ref_in)
+        torch.cuda.synchronize()
+        errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, want)]
+        ok = all(g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+                 and torch.allclose(g.float(), r.float(), atol=atol, rtol=rtol)
+                 for g, r in zip(got, want))
+        print(f"[grad] {label}: B={b} S={s} H={h} KV={kv} D={d} window={window} "
+              f"{str(dtype).split('.')[-1]} max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} "
+              f"dv {errs[2]:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"FlashAttentionFn gradients disagree with the plain twin's: {label}")
+        worst = max(worst, *errs)
+    print(f"[grad] largest gradient error against autograd through the plain twin: {worst:.3e}")
+
+    r = torch.randn((2, 16, 8), device="cuda", requires_grad=True)
+    wkv_args = (r, *(torch.randn((2, 16, 8), device="cuda") for _ in range(2)),
+                -torch.rand((2, 16, 8), device="cuda"), torch.zeros((2, 1, 8), device="cuda"),
+                torch.zeros((2, 8, 8), device="cuda"))
+    dt = torch.rand((1, 16, 8), device="cuda", requires_grad=True)
+    scan_args = (dt, torch.randn((1, 16, 4), device="cuda"), torch.randn((1, 16, 4), device="cuda"),
+                 -torch.rand((8, 4), device="cuda"), torch.randn((1, 16, 8), device="cuda"),
+                 torch.zeros((1, 8, 4), device="cuda"))
+    for name, fn, args in (("rwkv6_cuda", wkv.rwkv6_cuda, wkv_args),
+                           ("mamba_scan_cuda", ms.mamba_scan_cuda, scan_args)):
+        try:
+            fn(*args)
+        except RuntimeError as e:
+            check("queue B" in str(e), f"{name}: {e}")
+            print(f"[grad] {name} under grad raises: {str(e)[:80]}...")
+        else:
+            check(False, f"{name} returned a tensor without a gradient under grad")
+
+    # the backward of one attention layer at stablelm's training shape (one
+    # microbatch: B=2, S=1024): the kernel forward, then the recomputation
+    # through the twin and its gradients
+    b, s, h, d = TRAIN_BATCH // TRAIN_MICRO, TRAIN_SEQ, 32, 80
+    q, k, v = (torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    g_out = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def fwd():
+        return ops.flash_attention(q, k, v, causal=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (q, k, v), g_out)
+
+    fwd_ms = cuda_ms(fwd, 2, 10)
+    both_ms = cuda_ms(fwd_bwd, 2, 10)
+    print(f"[grad] stablelm training shape B={b} S={s} H={h} D={d} bf16: forward (kernel) "
+          f"{fwd_ms:.4f} ms, forward + backward (recomputation through the plain twin) "
+          f"{both_ms:.4f} ms, so the backward {both_ms - fwd_ms:.4f} ms a layer")
+    return {"worst_err": worst, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms}
+
+
+def host_copy(tree: dict) -> list[torch.Tensor]:
+    from repro_torch.tree import leaves
+
+    return [t.detach().to("cpu", copy=True) for t in leaves(tree)]
+
+
+def phase_train_full(grad_stats: dict) -> tuple[dict, dict]:
+    """stablelm-3b at full width and depth in its own bf16: 3 steps of
+    ``make_train_step`` (AdamW, remat "full", B=4, S=1024, 2 microbatches)
+    on ``SyntheticTokens``, with the launch count of every step asserted;
+    then a profiled step and a breakdown. Returns the launch counts of the
+    3 steps and the stats."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.models import count_params, init_params, model_spec
+    from repro_torch.models.model import dtype_of
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import (
+        init_state, loss_fn, make_train_step, split_microbatches,
+    )
+    from repro_torch.tree import leaves_with_names, rebuild
+
+    tag = "[train-full]"
+    mods = kernel_modules()
+    cfg = get_config("stablelm-3b", "full")
+    check(cfg.remat == "full" and cfg.param_dtype == "bfloat16", f"config {cfg.remat} {cfg.param_dtype}")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-2, warmup_steps=0,
+                       total_steps=100, microbatches=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(init_params(model_spec(cfg), gen, dtype_of(cfg.param_dtype), "cuda"), tcfg)
+    torch.cuda.synchronize()
+    n_params = count_params(model_spec(cfg))
+    print(f"{tag} stablelm-3b full: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} params in {cfg.param_dtype}, remat {cfg.remat}, AdamW, B={TRAIN_BATCH} "
+          f"S={TRAIN_SEQ}, {TRAIN_MICRO} microbatches; state built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(n_params == 2_795_443_200, f"{n_params} params")
+    before = host_copy(state["params"])
+    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    step_fn = make_train_step(cfg, tcfg)
+    per_step = cfg.num_layers * 2 * TRAIN_MICRO  # forward + remat recomputation, per microbatch
+    torch.cuda.reset_peak_memory_stats()
+    counts = {name: 0 for name in mods}
+    losses, seconds = [], []
+    for step in range(TRAIN_STEPS):
+        batch = to_device(split_microbatches(data.batch_at(step), TRAIN_MICRO), "cuda")
+        for mod in mods.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        got = {name: mod.launches for name, mod in mods.items()}
+        want = {name: per_step if name == "flash_attention" else 0 for name in mods}
+        check(got == want, f"step {step}: kernel launches {got}, want {want}")
+        counts = {name: counts[name] + got[name] for name in mods}
+        m = {k: float(v) for k, v in metrics.items()}
+        losses.append(m)
+        print(f"{tag} step {step}: ce {m['ce']:.4f} grad_norm {m['grad_norm']:.4f} lr {m['lr']:.3g} "
+              f"{seconds[-1]:.4f} s, {TRAIN_BATCH * TRAIN_SEQ / seconds[-1]:.1f} tokens/s, "
+              f"launches {got}")
+        check(all(math.isfinite(v) for v in m.values()), f"step {step}: non-finite metrics {m}")
+    peak = torch.cuda.max_memory_allocated()
+    ln_v = math.log(cfg.vocab_size)
+    check(ln_v - 1 <= losses[0]["ce"] <= ln_v + 2,
+          f"first CE {losses[0]['ce']} outside [ln V - 1, ln V + 2] = [{ln_v - 1}, {ln_v + 2}]")
+    after = host_copy(state["params"])
+    names = [n for n, _ in leaves_with_names(state["params"])]
+    unchanged = [n for n, a, b in zip(names, before, after) if torch.equal(a, b)]
+    check(not unchanged, f"parameter leaves unchanged after {TRAIN_STEPS} steps: {unchanged}")
+    del before, after
+    print(f"{tag} first CE {losses[0]['ce']:.4f} (ln V = {ln_v:.4f}); all {len(names)} parameter "
+          f"leaves changed; launches over {TRAIN_STEPS} steps {counts} ({per_step} a step); "
+          f"max_memory_allocated {peak} bytes")
+
+    # a profiled step: device busy time, idle share, B1's forward and the
+    # recomputation through the twin (the device time under its backward)
+    batch = to_device(split_microbatches(data.batch_at(TRAIN_STEPS), TRAIN_MICRO), "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total) for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.self_device_time_total > 0), key=lambda r: -r[2])
+    stats = {"step_s": seconds, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / min(seconds),
+             "steps_per_s": 1 / min(seconds), "peak_bytes": peak,
+             "ce": [m["ce"] for m in losses], "grad_norm": [m["grad_norm"] for m in losses]}
+    if kernels:
+        busy_s = sum(r[2] for r in kernels) / 1e6
+        b1_ms = sum(r[2] for r in kernels if "flash_fwd_" in r[0]) / 1e3
+        b1_n = sum(r[1] for r in kernels if "flash_fwd_" in r[0])
+        # the autograd engine's event for each FlashAttentionFn backward
+        # (the node's own event nests inside it: counting both doubles)
+        recompute_ms = sum(e.device_time_total for e in events if e.key == (
+            "autograd::engine::evaluate_function: FlashAttentionFnBackward")) / 1e3
+        print(f"{tag} profiled step: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, idle share "
+              f"{1 - busy_s / wall_s:.4f} (profiler overhead included); B1 forward {b1_n}x "
+              f"{b1_ms:.3f} ms; recomputation through the twin under FlashAttentionFnBackward "
+              f"{recompute_ms:.3f} ms")
+        for name, count, us in kernels[:10]:
+            print(f"{tag}   {us / 1e3:10.3f} ms {count:6d}x {us / 1e6 / busy_s:7.2%} {name[:90]}")
+        stats.update(profiled_wall_s=wall_s, profiled_busy_s=busy_s, b1_fwd_ms=b1_ms,
+                     b1_fwd_launches=b1_n, b1_recompute_device_ms=recompute_ms)
+    else:
+        print(f"{tag} profiler recorded no device time: busy share not measured")
+
+    # breakdown of one microbatch's work, each piece timed alone after a
+    # synchronize: forward (with remat), backward (the remat recomputation,
+    # the gradients, B1's recomputation through the twin), optimizer update
+    mb = {k: v[0] for k, v in batch.items()}
+    live = {n: p.detach().requires_grad_() for n, p in leaves_with_names(state["params"])}
+    params = state["params"]
+    tree = rebuild(params, list(live.values()))
+    for _ in range(2):  # the second pass is the one reported
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(tree, cfg, tcfg, mb)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(loss, list(live.values()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        del loss
+    del tree, live
+    gtree = rebuild(params, list(grads))
+    del grads
+    opt.clip_by_global_norm(gtree, tcfg.grad_clip)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    opt.opt_update(params, gtree, state["opt"], state["step"], tcfg)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    del gtree
+    recompute_s = grad_stats["bwd_ms"] * cfg.num_layers / 1e3
+    breakdown = {"forward_s": t1 - t0, "backward_s": t2 - t1, "clip_s": t3 - t2,
+                 "update_s": t4 - t3, "b1_recompute_s_est": recompute_s}
+    print(f"{tag} breakdown of one microbatch (B={TRAIN_BATCH // TRAIN_MICRO}): forward "
+          f"{t1 - t0:.4f} s, backward {t2 - t1:.4f} s (B1's recomputation through the twin: "
+          f"{cfg.num_layers} x {grad_stats['bwd_ms']:.3f} ms = {recompute_s:.4f} s by [grad]'s "
+          f"timing), clipping {t3 - t2:.4f} s; optimizer update (once a step) {t4 - t3:.4f} s")
+    stats["breakdown"] = breakdown
+    del state, batch, params
+    torch.cuda.empty_cache()
+    return counts, stats
+
+
+def phase_continuum() -> dict:
+    """The reference's main path on the card at smoke size in float32,
+    through ``runtime.train_loop`` against a ``MemoryStore``: prepare_data,
+    train (straight; and crashing at step 3, then resumed from
+    latest.json), evaluate, and the train→serve hand-off behind the batch
+    handler. Deterministic algorithms make the straight and resumed runs
+    comparable at the reference test's atol 1e-6."""
+    from repro_torch.configs import get_config
+    from repro_torch.runtime import train_loop as tl
+    from repro_torch.runtime.store import MemoryStore
+    from repro_torch.serve.batcher import make_batch_handler
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.tree import leaves_with_names
+
+    tag = "[continuum]"
+    mods = kernel_modules()
+    store = MemoryStore()
+    data = tl.prepare_data(store, "smoke", shards=2, tokens_per_shard=1024)
+    print(f"{tag} prepare_data: {data}")
+    torch.use_deterministic_algorithms(True)
+    try:
+        for mod in mods.values():
+            mod.launches = 0
+        straight, trained = tl.train_run(store, "smoke", device="cuda", run="straight",
+                                         **CONTINUUM_KW)
+        counts = {name: mod.launches for name, mod in mods.items()}
+        layers = get_config("stablelm-3b", "smoke").num_layers
+        want = {name: CONTINUUM_KW["steps"] * layers * 2 if name == "flash_attention" else 0
+                for name in mods}  # each layer's forward and its remat recomputation
+        check(counts == want, f"train launches {counts}, want {want}")
+        print(f"{tag} train straight: {straight}; launches {counts}")
+        try:
+            tl.train(store, "smoke", device="cuda", run="resumed", die_at_step=3, **CONTINUUM_KW)
+            check(False, "die_at_step=3 did not crash")
+        except tl.SimulatedCrash as e:
+            latest = tl.CheckpointManager(store, "smoke", run="resumed").latest_step()
+            print(f"{tag} crashed: {e}; latest checkpoint step {latest}")
+            check(latest == 1, f"latest checkpoint {latest} after the crash, want 1")
+        resumed = tl.train(store, "smoke", device="cuda", run="resumed", **CONTINUUM_KW)
+        print(f"{tag} train resumed: {resumed}")
+        ev = tl.evaluate(store, "smoke", device="cuda", arch="stablelm-3b", run="resumed",
+                         batch=CONTINUUM_KW["batch"], seq_len=CONTINUUM_KW["seq_len"])
+        print(f"{tag} evaluate: {ev}")
+        check(ev[0]["step"] == CONTINUUM_KW["steps"] - 1 and math.isfinite(ev[0]["eval_ce"]),
+              f"evaluate {ev}")
+        engines = {run: tl.serve_engine(store, "smoke", arch="stablelm-3b", max_len=64, run=run,
+                                        device="cuda") for run in ("straight", "resumed")}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    exact = all(torch.equal(a, b) for (_, a), (_, b) in
+                zip(leaves_with_names(engines["straight"].params),
+                    leaves_with_names(trained["params"])))
+    check(exact, "the straight run's checkpoint does not restore its in-memory params exactly")
+    worst = max((a - b).abs().max().item() for (_, a), (_, b) in
+                zip(leaves_with_names(engines["straight"].params),
+                    leaves_with_names(engines["resumed"].params)))
+    print(f"{tag} params straight vs resumed: max_abs_err {worst:.3e} (atol 1e-6)")
+    check(worst <= 1e-6, f"straight and resumed runs differ by {worst}")
+    in_memory = ServeEngine(engines["resumed"].cfg, trained["params"], max_len=64, device="cuda")
+    rng = np.random.default_rng(5)
+    requests = [{"request_id": f"c{i}", "prompt": rng.integers(0, 256, n).tolist(),
+                 "max_new_tokens": 8} for i, n in enumerate((5, 12, 9, 16))]
+    handler = make_batch_handler(engines["resumed"], store, "smoke")
+    check(handler(None, packed_args=requests) == [len(requests)], "batch handler")
+    from repro_torch.serve.batcher import pad_prompts, result_tokens
+
+    served = [result_tokens(store, "smoke", r["request_id"]) for r in requests]
+    want = in_memory.generate(pad_prompts(requests), max_new_tokens=8).tolist()
+    print(f"{tag} served from the restored checkpoint: {served[0]} ...; identical to the "
+          f"in-memory params' greedy tokens: {served == want}")
+    check(served == want, "tokens from the restored checkpoint differ from the in-memory params'")
+    return counts
+
+
+def phase_continuum_process() -> dict:
+    """``phase_continuum`` in a child process (``--continuum``) under
+    ``CONTINUUM_ENV``; its output is passed on, and its last line holds
+    the launch counts of its training run."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--continuum"],
+                         env=dict(os.environ, **CONTINUUM_ENV), capture_output=True, text=True,
+                         timeout=600)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1]:
+        print(line)
+    if res.returncode != 0:
+        print(res.stderr[-8000:], file=sys.stderr)
+    check(res.returncode == 0 and bool(lines), f"[continuum] process exited {res.returncode}")
+    print(f"[continuum] {time.perf_counter() - t0:.1f} s in its own process")
+    return json.loads(lines[-1])
+
+
+def phase_train_cross() -> dict:
+    """stablelm smoke in float32, 3 steps on the card against the CPU from
+    the same params and batches, for AdamW and Adafactor at 1 and 2
+    microbatches. Returns the largest differences seen."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.models import init_params, model_spec
+    from repro_torch.train.train_step import init_state, make_train_step, split_microbatches
+    from repro_torch.tree import leaves_with_names, map_leaves
+
+    cfg = get_config("stablelm-3b", "smoke").copy(param_dtype="float32", compute_dtype="float32")
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    data = SyntheticTokens(cfg, 4, 64, seed=1)
+    worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0, "opt": 0.0}
+    for optimizer in ("adamw", "adafactor"):
+        for k in (1, 2):
+            tcfg = TrainConfig(optimizer=optimizer, learning_rate=1e-3, warmup_steps=1,
+                               total_steps=10, microbatches=k)
+            states = {dev: init_state(map_leaves(lambda p: p.to(dev, copy=True), params), tcfg)
+                      for dev in ("cpu", "cuda")}
+            steps = {dev: make_train_step(cfg, tcfg) for dev in states}
+            for i in range(3):
+                host = data.batch_at(i)
+                if k > 1:
+                    host = split_microbatches(host, k)
+                metrics = {}
+                for dev in states:
+                    states[dev], metrics[dev] = steps[dev](states[dev], to_device(host, dev))
+                for key in ("loss", "grad_norm"):
+                    a, b = float(metrics["cuda"][key]), float(metrics["cpu"][key])
+                    err = abs(a - b)
+                    check(err <= TRAIN_CROSS_ATOL + TRAIN_CROSS_RTOL * abs(b),
+                          f"{optimizer} k={k} step {i} {key}: cuda {a} cpu {b}")
+                    worst[key] = max(worst[key], err)
+            for part in ("params", "opt"):
+                pairs = zip(leaves_with_names(states["cuda"][part]),
+                            leaves_with_names(states["cpu"][part]))
+                for (name, a), (_, b) in pairs:
+                    a = a.cpu()
+                    err = (a - b).abs().max().item()
+                    check(torch.allclose(a, b, atol=TRAIN_CROSS_ATOL, rtol=TRAIN_CROSS_RTOL),
+                          f"{optimizer} k={k} {name}: cuda vs cpu max_abs_err {err}")
+                    worst[part] = max(worst[part], err)
+            print(f"[train-cross] {optimizer}, {k} microbatch(es), 3 steps: loss "
+                  f"{float(metrics['cuda']['loss']):.6f} (cpu {float(metrics['cpu']['loss']):.6f}); "
+                  f"worst so far {json.dumps(worst)}")
+    print(f"[train-cross] cuda vs cpu within atol {TRAIN_CROSS_ATOL}, rtol {TRAIN_CROSS_RTOL}: "
+          f"largest differences {json.dumps(worst)}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
@@ -753,6 +1190,7 @@ def main() -> int:
     worst_err = phase_kernel_cases()
     worst_wkv = phase_wkv_cases()
     worst_mamba = phase_mamba_cases()
+    grad_stats = phase_grad()
     stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32})
     rwkv_counts, rwkv_stats = phase_slice("rwkv6-7b", "full", PRIME_PROMPT_LENS, {"rwkv6_wkv": 32})
     jamba_counts, jamba_stats = phase_slice("jamba-1.5-large-398b", "no-moe", PRIME_PROMPT_LENS,
@@ -760,8 +1198,12 @@ def main() -> int:
     phase_cross_device("granite-3-8b", "smoke", 72)
     phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
     phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
+    train_counts, train_stats = phase_train_full(grad_stats)
+    continuum_counts = phase_continuum_process()
+    cross_worst = phase_train_cross()
     paths = {"stablelm-3b": stablelm_counts, "rwkv6-7b": rwkv_counts,
-             "jamba-1.5-large-398b": jamba_counts}
+             "jamba-1.5-large-398b": jamba_counts, "stablelm-3b train": train_counts,
+             "stablelm-3b continuum": continuum_counts}
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)}")
     flash_row, flash_serving = phase_timing(worst_err, launches["flash_attention"])
@@ -775,6 +1217,10 @@ def main() -> int:
           f"{json.dumps(prime)}")
     print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "
           f"serving shapes {json.dumps(serving)}")
+    print(f"[done] training stablelm-3b {json.dumps(train_stats)}; flash attention at the training "
+          f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
+          f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's; train cuda "
+          f"vs cpu {json.dumps(cross_worst)}")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -784,4 +1230,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--continuum"]:
+        check(torch.cuda.is_available(), "no CUDA device")
+        print(json.dumps(phase_continuum()))
+        sys.exit(0)
     sys.exit(main())

@@ -9,7 +9,7 @@ for its variants without experts: MoE is not ported, so its published
 from __future__ import annotations
 
 from . import granite_3_8b, jamba_1_5_large_398b, rwkv6_7b, stablelm_3b
-from .base import ModelConfig
+from .base import ModelConfig, TrainConfig
 
 ARCHS: dict[str, object] = {
     m.ARCH_ID: m for m in (stablelm_3b, granite_3_8b, rwkv6_7b, jamba_1_5_large_398b)
@@ -37,5 +37,6 @@ __all__ = [
     "ARCHS",
     "ARCH_IDS",
     "ModelConfig",
+    "TrainConfig",
     "get_config",
 ]

@@ -1,5 +1,6 @@
-"""Model configuration: a copy of the reference's ``ModelConfig`` and its
-sub-configs, so the port never imports the JAX package.
+"""Model and training configuration: copies of the reference's
+``ModelConfig`` with its sub-configs and of its ``TrainConfig``, so the
+port never imports the JAX package.
 
 The fields and defaults are kept identical to the reference so that a
 config built on either side describes the same model.
@@ -138,3 +139,22 @@ class ModelConfig:
 
     def copy(self, **kw: Any) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass
+class TrainConfig:
+    """Optimizer / loop hyper-parameters (paper-independent substrate)."""
+
+    optimizer: str = "adamw"  # adamw | adafactor
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    microbatches: int = 1  # gradient accumulation
+    seed: int = 0
+    checkpoint_every: int = 50
+    mtp_loss_weight: float = 0.3

@@ -2,7 +2,9 @@
 
 Both directions go through numpy: the reference's arrays become numpy
 arrays (``np.asarray``), and a nested dict of numpy arrays becomes a
-nested dict of tensors. Leaf order and names are the reference's
+nested dict of tensors. The same goes for a whole train state (params,
+optimizer moments and the int32 step), which checkpoints and the
+cross-framework tests carry over. Leaf order and names are the reference's
 (``repro_torch.tree``), so leaf ``i`` of one side is leaf ``i`` of the
 other.
 """
@@ -42,6 +44,23 @@ def params_to_reference(tree: Any) -> Any:
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
     return map_leaves(to_np, tree)
+
+
+def state_from_reference(np_state: dict, device: str | torch.device = "cpu") -> dict:
+    """The reference's train state ``{"step", "params", "opt"}`` (arrays or
+    numpy) -> the port's, on ``device``, every leaf in its own dtype (the
+    step an int32 0-d tensor)."""
+    if set(np_state) != {"step", "params", "opt"}:
+        raise ValueError(f"not a train state: keys {sorted(np_state)}")
+    return params_from_reference(np_state, device)
+
+
+def state_to_reference(state: dict) -> dict:
+    """The port's train state -> nested dict of numpy arrays with the
+    reference's structure, ready for ``jax.tree.map(jnp.asarray, ...)``."""
+    if set(state) != {"step", "params", "opt"}:
+        raise ValueError(f"not a train state: keys {sorted(state)}")
+    return params_to_reference(state)
 
 
 def leaf_names(tree: Any) -> list[str]:

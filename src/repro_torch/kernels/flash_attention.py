@@ -18,6 +18,11 @@ one function on the (B·H, S, D) layout, query head ``i`` reading kv head
   running max, denominator and accumulator; masked scores set to -1e30
   with p = 0; the final divide clamps the denominator at 1e-30.
 
+* ``FlashAttentionFn`` is the kernel on the training path, an
+  ``autograd.Function``: its forward launches the kernel, its backward
+  recomputes through the plain twin (the reference has no backward
+  kernel either).
+
 Unlike the Pallas wrapper, neither asserts ``S % block == 0``: both mask
 the ragged edge, because on the card the kernel also stands in for the
 reference's chunked path, which takes any S.
@@ -144,3 +149,38 @@ def flash_attention_cuda(
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     launches += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernel with a gradient: ``ops.flash_attention`` takes this on a
+    CUDA tensor whenever grad mode is on and an input requires grad.
+
+    ``forward`` launches the hand-written kernel (``flash_attention_cuda``,
+    one launch counted) and saves q, k and v. ``backward`` recomputes
+    through ``flash_attention_plain`` on detached inputs under
+    ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it; the
+    twin's GQA indexing (``repeat_interleave``) sums dk and dv over each
+    group of query heads. The reference trains on its differentiable XLA
+    path and has no backward kernel, so none is written here.
+
+    In bfloat16 the kernel rounds the probabilities to bf16 before p·v (as
+    the model-level reference does) while the twin keeps them in float32:
+    the gradients are those of the twin's function, and they agree with
+    the kernel's forward at the bf16 bar, not bit for bit.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, group: int, causal: bool, window: int, block_k: int):
+        out = flash_attention_cuda(q, k, v, group=group, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = {"group": group, "causal": causal, "window": window, "block_k": block_k}
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, **ctx.opts)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
+                None, None, None, None)

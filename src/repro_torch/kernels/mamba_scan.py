@@ -131,11 +131,17 @@ def mamba_scan_cuda(
     x: torch.Tensor,  # (B, T, DI) float32 or bfloat16
     h0: torch.Tensor,  # (B, DI, N) float32
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raise on anything it does not take."""
+    """Launch the CUDA kernel; raise on anything it does not take, and when
+    grad mode is on and an input requires grad: the kernel has no backward."""
     global launches
     args = (dt, bmat, cmat, a, x, h0)
     if not (dt.is_cuda and all(v.device == dt.device for v in args)):
         raise ValueError("mamba_scan_cuda needs dt, B, C, A, x, h0 on one CUDA device")
+    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
+        raise RuntimeError(
+            "mamba_scan_cuda has no backward yet (ROADMAP queue B: B3's autograd wrapper); it "
+            "would return tensors without a gradient. Run it under torch.no_grad() or "
+            "inference_mode, or train on the CPU")
     if any(v.dtype != torch.float32 for v in (dt, bmat, cmat, a, h0)) or x.dtype not in X_DTYPES:
         raise TypeError(f"dtypes {[v.dtype for v in args]}: the kernel takes float32, and x "
                         f"in float32 or bfloat16")

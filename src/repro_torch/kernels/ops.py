@@ -2,7 +2,9 @@
 
 On a CUDA tensor each wrapper launches its hand-written kernel or raises;
 on a CPU tensor it runs the kernel's plain-torch twin. Nothing else
-selects between the two.
+selects between the two. Under grad, flash attention's kernel runs inside
+``FlashAttentionFn`` (its backward recomputes through the twin); the WKV
+and scan kernels have no backward yet and raise.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ def flash_attention(
     qf = q.transpose(1, 2).reshape(b * h, s, d)
     kf = k.transpose(1, 2).reshape(b * kv, s, d)
     vf = v.transpose(1, 2).reshape(b * kv, s, d)
-    if qf.is_cuda:
+    if qf.is_cuda and torch.is_grad_enabled() and any(t.requires_grad for t in (qf, kf, vf)):
+        out = fa.FlashAttentionFn.apply(qf, kf, vf, group, causal, window, block_k)
+    elif qf.is_cuda:
         out = fa.flash_attention_cuda(qf, kf, vf, group=group, causal=causal, window=window)
     else:
         out = fa.flash_attention_plain(

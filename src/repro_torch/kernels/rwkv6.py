@@ -105,11 +105,17 @@ def rwkv6_cuda(
     u: torch.Tensor,  # (BH, 1, K)
     s0: torch.Tensor,  # (BH, K, V)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raise on anything it does not take."""
+    """Launch the CUDA kernel; raise on anything it does not take, and when
+    grad mode is on and an input requires grad: the kernel has no backward."""
     global launches
     args = (r, k, v, logw, u, s0)
     if not (r.is_cuda and all(x.device == r.device for x in args)):
         raise ValueError("rwkv6_cuda needs r, k, v, logw, u, s0 on one CUDA device")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        raise RuntimeError(
+            "rwkv6_cuda has no backward yet (ROADMAP queue B: B2's autograd wrapper, with C13); "
+            "it would return a tensor without a gradient. Run it under torch.no_grad() or "
+            "inference_mode, or train on the CPU")
     if any(x.dtype != torch.float32 for x in args):
         raise TypeError(f"dtypes {[x.dtype for x in args]}: the kernel takes float32 only")
     if r.ndim != 3:

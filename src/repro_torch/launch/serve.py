@@ -1,6 +1,6 @@
 """Serving launcher of the port: builds a ``ServeEngine`` on the card and
 answers a request load through the generator batch handler, publishing
-each result into an in-memory sink.
+each result into an in-memory CFS (``runtime.store.MemoryStore``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --variant full --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --variant no-moe
@@ -12,7 +12,6 @@ executor registered with a Colonies server) is not ported yet.
 from __future__ import annotations
 
 import argparse
-import json
 import time
 
 import numpy as np
@@ -22,22 +21,9 @@ from ..configs import get_config
 from ..device import resolve_device
 from ..models.model import dtype_of
 from ..models.spec import init_params, model_spec
-from ..serve.batcher import RESULTS_LABEL, make_batch_handler
+from ..runtime.store import MemoryStore
+from ..serve.batcher import make_batch_handler, result_tokens
 from ..serve.engine import ServeEngine
-
-
-class MemorySink:
-    """Results store with the ``upload_bytes`` call the batch handler uses."""
-
-    def __init__(self) -> None:
-        self.files: dict[tuple[str, str, str], bytes] = {}
-
-    def upload_bytes(self, colony: str, label: str, name: str, data: bytes) -> dict:
-        self.files[(colony, label, name)] = data
-        return {"name": name, "size": len(data)}
-
-    def tokens(self, colony: str, request_id: str) -> list[int]:
-        return json.loads(self.files[(colony, RESULTS_LABEL, f"{request_id}.json")])["tokens"]
 
 
 def build_engine(arch: str, variant: str, max_len: int, seed: int = 0,
@@ -93,10 +79,10 @@ def main(argv: list[str] | None = None) -> None:
                           args.seed, args.device)
     lens = np.random.default_rng(args.seed).integers(1, args.max_prompt_len + 1, args.requests)
     requests = make_requests(lens.tolist(), engine.cfg.vocab_size, args.max_new_tokens, args.seed)
-    sink = MemorySink()
+    sink = MemoryStore()
     seconds = serve(engine, requests, args.batch_size, sink)
     for r in requests:
-        print(r["request_id"], len(r["prompt"]), sink.tokens("serve", r["request_id"]))
+        print(r["request_id"], len(r["prompt"]), result_tokens(sink, "serve", r["request_id"]))
     st = engine.stats
     print(f"{st['requests']} requests in {st['batches']} batches, {st['tokens']} tokens, "
           f"{sum(seconds):.3f}s on {engine.device} (per batch: {[round(t, 4) for t in seconds]})")

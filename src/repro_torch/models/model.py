@@ -8,7 +8,9 @@ of ``hybrid_period`` blocks (attention at ``hybrid_attn_index``, Mamba
 elsewhere, each with a dense MLP) tiled ``num_layers / hybrid_period``
 times. Parameters keep the reference's stacked ``(num_groups, ...)``
 leaves so converted weights map one to one; the groups run in a Python
-loop.
+loop. Under grad with ``cfg.remat == "full"`` each group runs inside a
+non-reentrant ``torch.utils.checkpoint`` and is recomputed in the
+backward pass, as the reference wraps its scan body in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..tree import map_leaves
@@ -114,6 +117,29 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
     return x + out, dict(cache, cm=cm)
 
 
+def _group_fwd(layout: Layout, gparams: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, return_cache: bool) -> tuple[torch.Tensor, dict]:
+    gcache = {}
+    for i, bdef in enumerate(layout.group):
+        x, gcache[f"b{i}"] = _block_fwd(bdef, gparams[f"b{i}"], x, cfg, positions, return_cache)
+    return x, gcache
+
+
+def _remat_groups(cfg: ModelConfig) -> bool:
+    """Whether to recompute each group in the backward pass, as the
+    reference's ``jax.checkpoint`` around its scan body does. Only under
+    grad: serving (``inference_mode``) runs every group once either way."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return False
+    if cfg.remat == "full":
+        return True
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat 'dots' (save only the matrix products' outputs) is not ported to repro_torch "
+            "(ROADMAP queue A); use 'full' or 'none'")
+    raise ValueError(f"unknown remat {cfg.remat!r} (none | full | dots)")
+
+
 def _logits(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
     return attn.matmul_promote(x, head).to(dtype_of(cfg.logits_dtype))
@@ -133,14 +159,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool =
     tokens = batch["tokens"].long()
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(tokens.shape[1], device=x.device)
+    remat = not return_cache and _remat_groups(cfg)
+    # one view per group of every stacked leaf: under grad, unbind's backward
+    # stacks the groups' gradients once, where indexing would add a zero-filled
+    # gradient of the whole stacked leaf for every group
+    groups = map_leaves(lambda p: p.unbind(0), params["groups"])
     caches = []
     for g in range(layout.num_groups):
-        gparams = map_leaves(lambda p: p[g], params["groups"])
-        gcache = {}
-        for i, bdef in enumerate(layout.group):
-            x, c = _block_fwd(bdef, gparams[f"b{i}"], x, cfg, positions, return_cache)
-            gcache[f"b{i}"] = c
-        caches.append(gcache)
+        gparams = map_leaves(lambda views: views[g], groups)
+        if remat:
+            x = checkpoint(lambda x, gp: _group_fwd(layout, gp, x, cfg, positions, False)[0],
+                           x, gparams, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, gcache = _group_fwd(layout, gparams, x, cfg, positions, return_cache)
+            caches.append(gcache)
     logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
     out = (logits, _zero_aux(x.device))
     if return_cache:

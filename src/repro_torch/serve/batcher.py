@@ -49,3 +49,8 @@ def make_batch_handler(engine, cfs, colony: str):
         return [len(requests)]
 
     return generate_batch
+
+
+def result_tokens(cfs, colony: str, request_id: str) -> list[int]:
+    """The tokens ``generate_batch`` published for ``request_id``."""
+    return json.loads(cfs.download_bytes(colony, RESULTS_LABEL, f"{request_id}.json"))["tokens"]

@@ -29,6 +29,11 @@ def leaves_with_names(tree: Any, is_leaf: Callable[[Any], bool] | None = None) -
     return out
 
 
+def leaves(tree: Any) -> list[Any]:
+    """The leaves in flatten order (``jax.tree.leaves``)."""
+    return [leaf for _, leaf in leaves_with_names(tree)]
+
+
 def map_leaves(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` to every non-dict leaf, keeping the dict structure.
 
@@ -40,3 +45,21 @@ def map_leaves(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
     if isinstance(tree, dict):
         return {k: map_leaves(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def rebuild(tree: Any, leaves: list[Any]) -> Any:
+    """``tree``'s dict structure with its leaves replaced, in flatten
+    order, by ``leaves`` (``jax.tree.unflatten`` of ``tree``'s treedef)."""
+    it = iter(leaves)
+
+    def walk(node: Any) -> Any:
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return next(it)
+
+    out = walk(tree)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the tree has")
+    return out

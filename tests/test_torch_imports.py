@@ -11,6 +11,14 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
 
 
+# the training slice's modules, each held to the same rule
+TRAINING_MODULES = {
+    "repro_torch.data.pipeline", "repro_torch.train.optimizer", "repro_torch.train.train_step",
+    "repro_torch.train.checkpoint", "repro_torch.runtime.train_loop", "repro_torch.launch.train",
+    "repro_torch.runtime.store",
+}
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro")
@@ -23,14 +31,16 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "print(' '.join(sorted(n for n in sys.modules if n.startswith('repro_torch'))))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15  # every module really was imported
+    imported = set(res.stdout.split())
+    assert len(imported) >= 38  # every module really was imported
+    assert TRAINING_MODULES <= imported, TRAINING_MODULES - imported
 
 
 def test_no_source_file_imports_jax_or_reference():

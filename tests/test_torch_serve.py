@@ -15,7 +15,7 @@ from repro.serve import batcher as ref_batcher
 from repro.serve.engine import ServeEngine as RefEngine
 from repro_torch.configs import get_config
 from repro_torch.interop import params_from_reference
-from repro_torch.launch.serve import MemorySink
+from repro_torch.runtime.store import MemoryStore
 from repro_torch.serve import batcher
 from repro_torch.serve.engine import ServeEngine
 
@@ -74,7 +74,7 @@ REQUESTS = [
 
 def test_batch_handler_pads_like_reference():
     ref_engine, port_engine = _RecordingEngine(), _RecordingEngine()
-    ref_sink, port_sink = MemorySink(), MemorySink()
+    ref_sink, port_sink = MemoryStore(), MemoryStore()
     assert ref_batcher.make_batch_handler(ref_engine, ref_sink, "dev")(None, packed_args=REQUESTS) == [3]
     assert batcher.make_batch_handler(port_engine, port_sink, "dev")(None, packed_args=REQUESTS) == [3]
     (rp, rn), (pp, pn) = ref_engine.calls[0], port_engine.calls[0]
@@ -88,7 +88,7 @@ def test_padded_batch_tokens_match_reference(engines):
     """Ragged prompts left-padded with token 0 and no mask give the same
     tokens through both handlers."""
     ref, port = engines["granite-3-8b"]
-    ref_sink, port_sink = MemorySink(), MemorySink()
+    ref_sink, port_sink = MemoryStore(), MemoryStore()
     ref_batcher.make_batch_handler(ref, ref_sink, "dev")(None, packed_args=REQUESTS)
     batcher.make_batch_handler(port, port_sink, "dev")(None, packed_args=REQUESTS)
     assert port_sink.files == ref_sink.files
