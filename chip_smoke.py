@@ -46,7 +46,25 @@ Phases, each of which exits non-zero when it fails:
   9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
      the same parameters and batches, AdamW and Adafactor, 1 and 2
      microbatches: loss, grad norm and parameters at ``TRAIN_CROSS_*``;
- 10. each kernel, its plain twin and, where there is one, a PyTorch call
+ 10. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
+     in a process of its own (``BROKER_SOURCE``: signatures verified, no
+     torch, no jax, no module of ``repro``), reached
+     only over HTTP through the port's signed client; the colony, and the
+     mean round trip of 20 signed ``colonystats``;
+ 11. ``[executors-continuum]``: both DAGs of the reference's continuum test
+     on the port's executors on the card (smoke, f32): train, restore from
+     CFS and serve through a generator; then prepare_data -> train (two
+     trainers crash at step 3, the failsafe re-queues at a lease of 3x the
+     measured attempt, the resume) -> evaluate, with flash attention's
+     launches counted for the steps and batches that ran;
+ 12. ``[executors-serve-full]``: a ServeExecutor of full-width stablelm-3b
+     (float32) behind a generator of queuesize 4: 8 signed requests over
+     HTTP in 2 batches, 32 flash attention launches a prefill, tokens equal
+     to the engine's own generate; wall time, requests/s, tokens/s, the
+     engine's seconds per batch and the share outside it (requests 5-8
+     wait until batch 1 is on the engine; that wait is reported); this process
+     then holds no module of ``repro`` or JAX;
+ 13. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (the Mamba scan also beside
      the least time of its exponentials on the special-function unit).
@@ -61,6 +79,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -93,6 +112,11 @@ FLASH_CASES = [
     (2, 128, 4, 2, 32, 48, 32, torch.bfloat16, 3e-2, 3e-2, "bf16 sliding window 48"),
     (1, 300, 16, 2, 128, 100, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 window 100, GQA group 8"),
     (1, 77, 4, 1, 20, 0, 128, torch.bfloat16, 3e-2, 3e-2, "bf16 D=20 (plain loads), ragged"),
+    # float32 at the shapes the executors' handlers give the kernel
+    (2, 16, 4, 4, 16, 0, 16, torch.float32, 2e-5, 1e-4, "executors smoke train/eval f32"),
+    (4, 16, 4, 4, 16, 0, 16, torch.float32, 2e-5, 1e-4, "executors smoke serve f32"),
+    (4, 300, 32, 32, 80, 0, 128, torch.float32, 2e-5, 1e-4, "executors stablelm serving S=300 f32"),
+    (4, 200, 32, 32, 80, 0, 128, torch.float32, 2e-5, 1e-4, "executors stablelm serving S=200 f32"),
 ]
 # (S, D, dtype, atol, rtol): bidirectional, ragged S, GQA group 2
 BIDIR_CASES = [
@@ -1180,6 +1204,382 @@ def phase_train_cross() -> dict:
     return worst
 
 
+def reference_modules(modules) -> list[str]:
+    """The names in ``modules`` (e.g. ``sys.modules``) of the reference
+    package (``repro`` and ``repro.*``) and of JAX (any name starting with
+    ``jax``), sorted: this process must hold none of them."""
+    return sorted(n for n in modules if n == "repro" or n.startswith(("repro.", "jax")))
+
+
+# The broker process. ColonyOS deploys the broker as a service of its own,
+# which executors on any platform reach only through the signed JSON
+# protocol over HTTP; so it runs here as a separate process, and this
+# process reaches it only through the port's HttpTransport. The broker is
+# the port's stdlib copy, ``repro_torch.broker``, which uses torch for
+# nothing: the child registers the ``repro_torch`` package by its path
+# without running its ``__init__`` (which warms torch's CPU ``exp``), so it
+# loads neither torch nor any module of the reference. It verifies every
+# signature (and shows that it refuses an unsigned request), runs the failsafe scanner and the generators' ticks every
+# 0.1 s, prints its port, then what it imported, and waits to be killed.
+BROKER_SOURCE = """\
+import json, sys, threading, time, types
+t0 = time.perf_counter()
+pkg = types.ModuleType("repro_torch")
+pkg.__path__ = [sys.argv[2]]
+sys.modules["repro_torch"] = pkg
+from repro_torch.broker import ColoniesHttpServer, standalone_server
+srv = standalone_server(sys.argv[1])
+http = ColoniesHttpServer(srv)
+http.start()
+srv.start_background(failsafe_interval=0.1)
+print(http.port, flush=True)
+tops = {n.split(".")[0] for n in sys.modules}
+unsigned = srv.handle({"payloadtype": "colonystats", "payload": "{}", "identity": sys.argv[1]})
+print(json.dumps({"refuses_unsigned": unsigned.get("status") == 403,
+                  "start_s": time.perf_counter() - t0,
+                  "torch_or_jax": sorted(tops & {"torch", "jax", "jaxlib"}),
+                  "reference": sorted(tops & {"repro"})}), flush=True)
+threading.Event().wait()
+"""
+COLONY = "h100"
+# [executors-continuum]: the DAGs of tests/test_integration_continuum.py at
+# their smoke size; the hand-off's training takes DAG 1's kwargs, so its
+# attempt time bounds DAG 1's and sets DAG 1's lease (3x)
+EXEC_TRAIN_KW = {"arch": "stablelm-3b", "steps": 4, "batch": 2, "seq_len": 16,
+                 "checkpoint_every": 1}
+EXEC_EVAL_BATCHES = 2  # evaluate's default eval_batches
+
+
+class Broker:
+    """The broker process (``BROKER_SOURCE``) and the port's signed HTTP
+    client to it, with a server key and a colony key of this run."""
+
+    def __init__(self) -> None:
+        from repro_torch.core.client import Colonies
+        from repro_torch.core.crypto import Crypto
+        from repro_torch.core.http_transport import HttpTransport
+
+        self.server_prv, self.colony_prv = Crypto.prvkey(), Crypto.prvkey()
+        t0 = time.perf_counter()
+        root = Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", BROKER_SOURCE, Crypto.id(self.server_prv),
+             str(root / "src" / "repro_torch")], cwd=root, stdout=subprocess.PIPE, text=True)
+        try:
+            port = self.proc.stdout.readline().strip()
+            info = self.proc.stdout.readline().strip()
+            self.start_s = time.perf_counter() - t0
+            check(port.isdigit() and bool(info), f"the broker process printed {port!r}, {info!r}")
+            self.info = json.loads(info)
+        except BaseException:
+            self.close()
+            raise
+        self.transport = HttpTransport("127.0.0.1", int(port))
+        self.client = Colonies(self.transport)
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def close(self) -> None:
+        if self.alive():
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+        self.proc.stdout.close()
+
+
+def phase_broker(broker: Broker) -> dict:
+    """The broker is up, verifies signatures and imported neither torch nor
+    jax; the colony is created with the server key; 20 signed
+    ``colonystats`` calls give the mean round trip."""
+    from repro_torch.core.crypto import Crypto
+
+    tag = "[broker]"
+    print(f"{tag} broker process {broker.proc.pid} on port {broker.transport.endpoints[0][1]}: "
+          f"{json.dumps(broker.info)}; up after {broker.start_s:.3f} s")
+    check(broker.info["refuses_unsigned"] is True, "the broker took an unsigned request")
+    check(broker.info["torch_or_jax"] == [] and broker.info["reference"] == [],
+          f"the broker process imported {broker.info['torch_or_jax'] + broker.info['reference']}")
+    health = broker.transport.health()
+    check(health.get("status") == "ok", f"/health answered {health}")
+    broker.client.add_colony(COLONY, Crypto.id(broker.colony_prv), broker.server_prv)
+    seconds = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        stats = broker.client.stats(COLONY, broker.colony_prv)
+        seconds.append(time.perf_counter() - t0)
+    check(stats["executors"] == 0 and stats["waiting"] == 0, f"colonystats {stats}")
+    t0 = time.perf_counter()
+    for _ in range(20):
+        Crypto.sign("colonystats", broker.colony_prv)
+    sign_s = (time.perf_counter() - t0) / 20
+    rtt = sum(seconds) / len(seconds)
+    print(f"{tag} /health {health}; colony {COLONY!r} created; 20 signed colonystats: mean round "
+          f"trip {rtt * 1e3:.3f} ms (min {min(seconds) * 1e3:.3f}, max {max(seconds) * 1e3:.3f}); "
+          f"signing alone {sign_s * 1e3:.3f} ms")
+    return {"start_s": broker.start_s, "rpc_mean_s": rtt, "rpc_min_s": min(seconds),
+            "rpc_max_s": max(seconds), "sign_s": sign_s}
+
+
+def serve_workflow() -> dict:
+    """The workflow a serving generator fires: one ``generate_batch``."""
+    return {"colonyname": COLONY,
+            "functionspecs": [{"nodename": "batch", "funcname": "generate_batch",
+                               "conditions": {"executortype": "h100-serve",
+                                              "dependencies": []}}]}
+
+
+def zero_launches(mods: dict) -> None:
+    for mod in mods.values():
+        mod.launches = 0
+
+
+def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
+    """Both DAGs of tests/test_integration_continuum.py on the card, smoke
+    size, float32, through the port's executors and the broker process.
+    The hand-off first: a TrainerExecutor trains run "handoff", whose
+    attempt time sets DAG 1's train lease (3x); a ServeExecutor restores
+    it from CFS and serves a generator's batch, token for token as its
+    engine's own generate. Then DAG 1: prepare_data on an edge executor,
+    train on two trainers that both crash at step 3 on their first
+    attempt, the failsafe, the resume, evaluate. Flash attention's
+    launches are counted for the steps and batches that really ran."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fs import CFSClient, MemoryStorage
+    from repro_torch.core.spec import FunctionSpec, WorkflowSpec
+    from repro_torch.runtime import torch_executor as tx
+    from repro_torch.serve.batcher import InferenceClient, pad_prompts
+
+    tag = "[executors-continuum]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    layers = get_config("stablelm-3b", "smoke").num_layers
+    client, prv = broker.client, broker.colony_prv
+    storage = MemoryStorage()  # the blob store every executor here shares
+    kw = dict(colony_prvkey=prv, device="cuda")
+    running = []
+
+    def start(ex):
+        running.append(ex)
+        ex.start(poll_timeout=0.2)
+        return ex
+
+    try:
+        # ---- the hand-off: train, then serve the checkpoint behind a generator
+        zero_launches(mods)
+        trainer = start(tx.TrainerExecutor(client, COLONY, "h100-handoff", "h100-pod", storage,
+                                           **kw))
+        p = client.submit(FunctionSpec.from_dict({
+            "conditions": {"colonyname": COLONY, "executortype": "h100-pod"},
+            "funcname": "train", "kwargs": dict(EXEC_TRAIN_KW, run="handoff"),
+            "maxexectime": 600}), prv)
+        done = client.wait(p["processid"], prv, timeout=600)
+        trainer.stop()
+        check(done["state"] == "successful" and done["out"][0]["final_step"] == 3,
+              f"hand-off train: {done['state']} {done['errors'] or done['out']}")
+        attempt_s = (done["endtime"] - done["starttime"]) / 1e9
+        lease = max(5, math.ceil(3 * attempt_s))
+        print(f"{tag} hand-off train (4 steps, 4 checkpoints): {done['out'][0]}; attempt "
+              f"{attempt_s:.3f} s from assign to close, so DAG 1's train lease is {lease} s")
+        server = start(tx.ServeExecutor(client, COLONY, "h100-serve-handoff", "h100-serve",
+                                        storage, arch="stablelm-3b", max_len=64, run="handoff",
+                                        **kw))
+        g = client.add_generator({"colonyname": COLONY, "name": "handoff-gen", "queuesize": 4,
+                                  "timeout": 30.0, "workflow": serve_workflow()}, prv)
+        infc = InferenceClient(client, CFSClient(client, storage, prv), COLONY, g["generatorid"],
+                               prv)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, 256, n).tolist() for n in (5, 12, 9, 16)]
+        rids = [infc.submit(pr, max_new_tokens=8) for pr in prompts]
+        served = [infc.wait(r, timeout=120) for r in rids]
+        server.stop()
+        handoff = {name: mod.launches for name, mod in mods.items()}
+        check(server.engine.stats["batches"] == 1, f"hand-off batches {server.engine.stats}")
+        direct = server.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
+                                        max_new_tokens=8).tolist()
+        print(f"{tag} served from the restored checkpoint through a generator: {served[0]} ...; "
+              f"identical to the engine's own generate: {served == direct}")
+        check(served == direct, "tokens served through the generator differ from generate's")
+        # 4 steps x (forward + remat recomputation) x layers, then one prefill
+        want = {name: EXEC_TRAIN_KW["steps"] * 2 * layers + layers
+                if name == "flash_attention" else 0 for name in mods}
+        print(f"{tag} hand-off launches {handoff} (want {want})")
+        check(handoff == want, f"hand-off launches {handoff}, want {want}")
+
+        # ---- DAG 1: prepare_data -> train (crash at step 3, failsafe, resume) -> evaluate
+        data_ex = start(tx.DataExecutor(client, COLONY, "edge-1", "edge-data", storage, **kw))
+        trainers = [start(tx.TrainerExecutor(client, COLONY, f"h100-{c}", "h100-pod", storage,
+                                             die_at_step=3, **kw)) for c in "ab"]
+        wf = WorkflowSpec.from_dict({"colonyname": COLONY, "functionspecs": [
+            {"nodename": "prep", "funcname": "prepare_data",
+             "kwargs": {"shards": 2, "tokens_per_shard": 256},
+             "conditions": {"executortype": "edge-data", "dependencies": []},
+             "maxexectime": 30},
+            {"nodename": "train", "funcname": "train", "kwargs": dict(EXEC_TRAIN_KW, run="itest"),
+             "conditions": {"executortype": "h100-pod", "dependencies": ["prep"]},
+             "maxexectime": lease, "maxretries": 5},
+            {"nodename": "eval", "funcname": "evaluate",
+             "kwargs": {"arch": "stablelm-3b", "batch": 2, "seq_len": 16, "run": "itest",
+                        "eval_batches": EXEC_EVAL_BATCHES},
+             "conditions": {"executortype": "h100-pod", "dependencies": ["train"]},
+             "maxexectime": 60},
+        ]})
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        r = client.submit_workflow(wf, prv)
+        procs = {q["spec"]["nodename"]: q for q in r["processes"]}
+        done = client.wait(procs["eval"]["processid"], prv, timeout=3 * lease + 300)
+        dag_s = time.perf_counter() - t0
+        dag1 = {name: mod.launches for name, mod in mods.items()}
+        for ex in (data_ex, *trainers):
+            ex.stop()
+        train_p = client.get_process(procs["train"]["processid"], prv)
+        failed = [t.failed for t in trainers]
+        print(f"{tag} DAG 1 in {dag_s:.3f} s: eval {done['state']} {done['out'] or done['errors']}; "
+              f"train {train_p['state']}, retries {train_p['retries']}, out {train_p['out']}; "
+              f"trainers failed {failed}, processed {[t.processed for t in trainers]}")
+        check(done["state"] == "successful" and math.isfinite(done["out"][0]["eval_ce"]),
+              f"evaluate: {done['state']} {done['errors']}")
+        check(train_p["state"] == "successful" and train_p["retries"] >= 1
+              and train_p["out"][0]["final_step"] == 3, f"train: {train_p}")
+        check(sum(failed) in (1, 2), f"trainers failed {failed}, want 1 or 2 in all")
+        # steps 0-2, then step 3 after the resume (a second crash comes
+        # before step 3 runs), each forward + remat recomputation; then one
+        # forward per eval batch
+        want = {name: (4 * 2 + EXEC_EVAL_BATCHES) * layers if name == "flash_attention" else 0
+                for name in mods}
+        print(f"{tag} DAG 1 launches {dag1} (want {want})")
+        check(dag1 == want, f"DAG 1 launches {dag1}, want {want}")
+        check(broker.alive(), "the broker process died")
+    finally:
+        for ex in running:
+            ex.stop()
+    total = {name: handoff[name] + dag1[name] for name in mods}
+    seconds = time.perf_counter() - t_phase
+    print(f"{tag} {seconds:.1f} s")
+    return total, {"train_attempt_s": attempt_s, "train_lease_s": lease, "dag1_s": dag_s,
+                   "trainers_failed": failed, "train_retries": train_p["retries"],
+                   "eval_ce": done["out"][0]["eval_ce"], "seconds": seconds}
+
+
+def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
+    """Full-width stablelm-3b (32 layers, float32 as the executors' config
+    forces) in a ServeExecutor behind a generator of queuesize 4: 8 signed
+    requests over HTTP in 2 batches, 32 flash attention launches a prefill,
+    tokens equal to the engine's own generate on each batch; where the wall
+    time goes."""
+    from repro_torch.core.fs import CFSClient, MemoryStorage
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import count_params, model_spec, prefill
+    from repro_torch.runtime import torch_executor as tx
+    from repro_torch.serve.batcher import InferenceClient, pad_prompts
+
+    tag = "[executors-serve-full]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    client, prv = broker.client, broker.colony_prv
+    storage = MemoryStorage()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ex = tx.ServeExecutor(client, COLONY, "h100-serve-full", "h100-serve", storage,
+                          colony_prvkey=prv, arch="stablelm-3b", variant="full",
+                          max_len=max(PROMPT_LENS) + NEW_TOKENS, device="cuda")
+    torch.cuda.synchronize()
+    engine, cfg = ex.engine, ex.engine.cfg
+    n_params = count_params(model_spec(cfg))
+    print(f"{tag} ServeExecutor stablelm-3b full: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params} params in {cfg.param_dtype}, built in {time.perf_counter() - t0:.1f} s")
+    check(n_params == 2_795_443_200 and cfg.num_layers == 32 and cfg.param_dtype == "float32",
+          f"{n_params} params, {cfg.num_layers} layers, {cfg.param_dtype}")
+    engine_s = []
+    generate = engine.generate
+    batch_started = threading.Event()
+
+    def timed_generate(*args, **kwargs):  # the engine's own time per batch
+        batch_started.set()
+        t = time.perf_counter()
+        out = generate(*args, **kwargs)  # ends in a copy to the host
+        engine_s.append(time.perf_counter() - t)
+        return out
+
+    engine.generate = timed_generate
+    try:
+        ex.start(poll_timeout=0.2)
+        g = client.add_generator({"colonyname": COLONY, "name": "serve-full", "queuesize": 4,
+                                  "timeout": 60.0, "workflow": serve_workflow()}, prv)
+        infc = InferenceClient(client, CFSClient(client, storage, prv), COLONY, g["generatorid"],
+                               prv)
+        requests = make_requests(PROMPT_LENS, cfg.vocab_size, NEW_TOKENS, seed=1)
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        rids = [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in requests[:4]]
+        # The generator fires once 4 are queued, but drains all it holds: so
+        # the next 4 go in once the first batch is on the engine, which this
+        # process sees without asking the broker. The time held back is
+        # reported, since the share outside the engine depends on it.
+        t_wait = time.perf_counter()
+        check(batch_started.wait(120), "the generator did not fire")
+        wait_s = time.perf_counter() - t_wait
+        rids += [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in requests[4:]]
+        served = {rid: infc.wait(rid, timeout=600) for rid in rids}
+        wall_s = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in mods.items()}
+        check(broker.alive(), "the broker process died")
+    finally:
+        ex.stop()
+        engine.generate = generate
+    batches = [q for q in client.get_processes(COLONY, prv, state="successful", count=1000)
+               if q["assignedexecutorid"] == ex.executorid]
+    batches.sort(key=lambda q: q["submissiontime"])
+    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
+    print(f"{tag} {len(requests)} requests in {len(batches)} batches of "
+          f"{[len(q['spec']['kwargs']['packed_args']) for q in batches]}; engine stats "
+          f"{engine.stats}; launches {counts} (want {want})")
+    sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
+    check(sizes == [4, 4] and engine.stats["batches"] == 2 and engine.stats["requests"] == 8,
+          f"batches of {sizes}, engine stats {engine.stats}")
+    check(counts == want, f"launches {counts}, want {want}")
+    prefill_s = []
+    for q in batches:
+        packed = q["spec"]["kwargs"]["packed_args"]
+        direct = engine.generate(pad_prompts(packed), max_new_tokens=NEW_TOKENS).tolist()
+        got = [served[r["request_id"]] for r in packed]
+        check(got == direct, "served tokens differ from the engine's own generate on the batch")
+        tokens = torch.as_tensor(pad_prompts(packed), dtype=torch.long, device=engine.device)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            prefill(engine.params, cfg, {"tokens": tokens}, engine.max_len)
+            torch.cuda.synchronize()
+            prefill_s.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = len(requests) * NEW_TOKENS
+    engine_total = sum(engine_s)
+    stats = {"wall_s": wall_s, "requests_per_s": len(requests) / wall_s,
+             "tokens_per_s": n_tok / wall_s, "engine_s": engine_s, "prefill_s": prefill_s,
+             "decode_s": [e - p for e, p in zip(engine_s, prefill_s)],
+             "outside_engine_share": 1 - engine_total / wall_s, "held_back_s": wait_s,
+             "outside_engine_share_less_held_back": 1 - engine_total / (wall_s - wait_s),
+             "peak_bytes": peak}
+    print(f"{tag} served tokens identical to generate on each batch; first: "
+          f"{served[rids[0]]}")
+    print(f"{tag} first submit to last result {wall_s:.3f} s: {len(requests) / wall_s:.3f} "
+          f"requests/s, {n_tok / wall_s:.1f} tokens/s; engine per batch "
+          f"{[round(x, 4) for x in engine_s]} s (prefill alone {[round(x, 4) for x in prefill_s]} "
+          f"s, so decode {[round(x, 4) for x in stats['decode_s']]} s); outside the engine "
+          f"(signed RPCs, CFS, generator wait) {stats['outside_engine_share']:.4f} of the wall "
+          f"time, {stats['outside_engine_share_less_held_back']:.4f} without the "
+          f"{wait_s:.3f} s that requests 5-8 were held back; max_memory_allocated {peak} bytes")
+    del ex, engine
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} {stats['seconds']:.1f} s")
+    return counts, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
@@ -1201,9 +1601,22 @@ def main() -> int:
     train_counts, train_stats = phase_train_full(grad_stats)
     continuum_counts = phase_continuum_process()
     cross_worst = phase_train_cross()
+    broker = Broker()
+    try:
+        broker_stats = phase_broker(broker)
+        executor_counts, executor_stats = phase_executors_continuum(broker)
+        serve_exec_counts, serve_exec_stats = phase_executors_serve_full(broker)
+        check(broker.alive(), "the broker process died")
+    finally:
+        broker.close()
+    foreign = reference_modules(sys.modules)
+    print(f"[broker] stopped; modules of the reference or of JAX in this process: {foreign}")
+    check(not foreign, f"this process imported {foreign}")
     paths = {"stablelm-3b": stablelm_counts, "rwkv6-7b": rwkv_counts,
              "jamba-1.5-large-398b": jamba_counts, "stablelm-3b train": train_counts,
-             "stablelm-3b continuum": continuum_counts}
+             "stablelm-3b continuum": continuum_counts,
+             "stablelm-3b executors-continuum": executor_counts,
+             "stablelm-3b executors-serve-full": serve_exec_counts}
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)}")
     flash_row, flash_serving = phase_timing(worst_err, launches["flash_attention"])
@@ -1221,6 +1634,8 @@ def main() -> int:
           f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
           f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's; train cuda "
           f"vs cpu {json.dumps(cross_worst)}")
+    print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
+          f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,552 @@
+"""The Colonies server, trimmed from the reference's ``repro/core/server.py``.
+
+A stateless broker (paper §3): every request is a signed envelope whose
+signer the server recovers, checks against the colony's roles, and then
+answers from the database. What it keeps of the reference:
+
+  * process submission, long-poll assignment and close (Tables 1-2, Fig. 2)
+    with the Eq. (1) priority order;
+  * workflow DAGs with ``wait_for_parents`` and dynamic children (§3.4.2);
+  * the ``maxexectime``/``maxwaittime`` failsafe scanner (§3.4);
+  * exactly-once KEYED requests: a repeated ``(identity, msgid)`` gets the
+    recorded reply, and the handler does not run again;
+  * generators and CFS metadata (``generator.py``, ``cfs.py``).
+
+One replica, always the leader: the reference's Raft replication, its
+cron extension, its unverified in-process path, its fault-injection sites
+and its analysis hooks are left out.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import secrets
+import threading
+from typing import Any, Callable
+
+from ..core import idempotency
+from ..core.crypto import Crypto
+from ..core.errors import (
+    AuthError,
+    ColoniesError,
+    ConflictError,
+    NotFoundError,
+    TimeoutError_,
+    ValidationError,
+)
+from ..core.process import FAILED, RUNNING, STATES, SUCCESSFUL, WAITING, Process, now_ns
+from ..core.security import canonical
+from ..core.spec import FunctionSpec, WorkflowSpec
+from .database import Colony, Executor, MemoryDatabase
+
+
+def open_envelope(env: dict) -> tuple[str, str, dict[str, Any]]:
+    """``(identity, payloadtype, payload)`` of a signed envelope; the
+    identity is recovered from the signature over payloadtype, payload and
+    msgid. Raises ``AuthError`` on a missing or broken signature."""
+    ptype = env.get("payloadtype", "")
+    body = env.get("payload", "")
+    if isinstance(body, dict):  # pre-parsed payloads on the in-process path
+        body = canonical(body)
+    payload = json.loads(body) if body else {}
+    sig = env.get("signature", "")
+    if not sig:
+        raise AuthError("missing signature")
+    try:
+        identity = Crypto.recover(ptype + body + env.get("msgid", ""), sig)
+    except (ValueError, AssertionError) as e:
+        raise AuthError(f"signature recovery failed: {e}") from e
+    return identity, ptype, payload
+
+
+def expand_workflow(wf: WorkflowSpec) -> list[Process]:
+    """One process per node; parent/child ids wired from nodename deps."""
+    workflowid = secrets.token_hex(16)
+    by_name: dict[str, Process] = {}
+    procs: list[Process] = []
+    for spec in wf.specs:
+        p = Process.create(spec)
+        p.workflowid = workflowid
+        by_name[spec.nodename] = p
+        procs.append(p)
+    for spec in wf.specs:
+        p = by_name[spec.nodename]
+        for dep in spec.conditions.dependencies:
+            parent = by_name[dep]
+            p.parents.append(parent.processid)
+            parent.children.append(p.processid)
+        p.wait_for_parents = len(p.parents) > 0
+    return procs
+
+
+class _QueueSignal:
+    """Wakeup channel for one (colony, executortype) ready queue."""
+
+    __slots__ = ("cv", "version")
+
+    def __init__(self) -> None:
+        self.cv = threading.Condition(threading.Lock())
+        self.version = 0
+
+
+class ColoniesServer:
+    """One Colonies server. ``serverid`` is the identity of the server
+    owner, the only identity that may create colonies."""
+
+    name = "colonies-0"
+
+    def __init__(self, serverid: str) -> None:
+        self.serverid = serverid
+        self.db = MemoryDatabase()
+        self._signals: dict[tuple[str, str], _QueueSignal] = {}
+        self._signals_guard = threading.Lock()
+        self._handlers: dict[str, Callable[[str, dict], Any]] = {
+            "addcolony": self._h_add_colony,
+            "addexecutor": self._h_add_executor,
+            "approveexecutor": self._h_approve_executor,
+            "rejectexecutor": self._h_reject_executor,
+            "removeexecutor": self._h_remove_executor,
+            "listexecutors": self._h_list_executors,
+            "adduser": self._h_add_user,
+            "listusers": self._h_list_users,
+            "addfunction": self._h_add_function,
+            "listfunctions": self._h_list_functions,
+            "submitfunctionspec": self._h_submit,
+            "submitworkflow": self._h_submit_workflow,
+            "assign": self._h_assign,
+            "close": self._h_close,
+            "addchild": self._h_add_child,
+            "getprocess": self._h_get_process,
+            "getprocesses": self._h_get_processes,
+            "colonystats": self._h_stats,
+        }
+        self.extensions: list[Any] = []  # generator and CFS handlers register here
+        self._stop = threading.Event()
+        self._failsafe_thread: threading.Thread | None = None
+        # exceptions swallowed (but counted) by the failsafe loop
+        self.failsafe_errors = 0
+
+    # ------------------------------------------------------------------ RPC
+    def handle(self, envelope: dict) -> dict:
+        """Entry point for all transports: ``{"result": ...}`` or
+        ``{"error": ..., "status": ...}``."""
+        try:
+            identity, ptype, payload = open_envelope(envelope)
+            handler = self._handlers.get(ptype)
+            if handler is None:
+                for ext in self.extensions:
+                    handler = ext.handlers().get(ptype)
+                    if handler is not None:
+                        break
+            if handler is None:
+                raise ValidationError(f"unknown payloadtype {ptype!r}")
+            # A KEYED envelope whose (identity, msgid) has a recorded reply
+            # is a client retry of a committed operation: replay the reply.
+            # The msgid is covered by the signature, so only its signer can.
+            msgid = str(envelope.get("msgid") or "")
+            dedup_key = ""
+            if msgid and idempotency.classify(ptype) == idempotency.KEYED:
+                dedup_key = f"{identity}:{msgid}"
+                cached = self.db.dedup_get(dedup_key)
+                if cached is not None:
+                    return {"result": cached, "replayed": True}
+            result = handler(identity, payload)
+            # successes only: a handler raises before it mutates anything
+            if dedup_key:
+                self.db.dedup_put(dedup_key, now_ns(), result)
+            return {"result": result}
+        except ColoniesError as e:
+            return {"error": str(e), "status": e.status}
+
+    # ------------------------------------------------------------ auth utils
+    def _require_server_owner(self, identity: str) -> None:
+        if identity != self.serverid:
+            raise AuthError("requires server owner")
+
+    def _require_colony_owner(self, identity: str, colonyname: str) -> Colony:
+        colony = self.db.get_colony(colonyname)
+        if identity != colony.colonyid:
+            raise AuthError("requires colony owner")
+        return colony
+
+    def _require_member(self, identity: str, colonyname: str) -> Executor | None:
+        """Approved executor OR registered user OR colony owner."""
+        colony = self.db.get_colony(colonyname)
+        if identity == colony.colonyid:
+            return None
+        try:
+            ex = self.db.get_executor(identity)
+            if ex.colonyname == colonyname and ex.state == "approved":
+                self.db.touch_executor(identity, now_ns())
+                return ex
+        except NotFoundError:
+            pass
+        user = self.db.user_get(identity)
+        if user is not None and user.get("colonyname") == colonyname:
+            return None
+        raise AuthError("identity is not a member of the colony")
+
+    def _require_executor(self, identity: str, colonyname: str) -> Executor:
+        try:
+            ex = self.db.get_executor(identity)
+        except NotFoundError as e:
+            raise AuthError("unknown executor identity") from e
+        if ex.colonyname != colonyname:
+            raise AuthError("executor belongs to another colony")
+        if ex.state != "approved":
+            raise AuthError(f"executor not approved (state={ex.state})")
+        self.db.touch_executor(identity, now_ns())
+        return ex
+
+    # -------------------------------------------------------------- handlers
+    def _h_add_colony(self, identity: str, payload: dict) -> dict:
+        self._require_server_owner(identity)
+        colony = Colony.from_dict(payload.get("colony", payload))
+        if not colony.colonyname or not colony.colonyid:
+            raise ValidationError("colony needs colonyname and colonyid")
+        self.db.add_colony(colony)
+        return colony.to_dict()
+
+    def _h_add_executor(self, identity: str, payload: dict) -> dict:
+        ex = Executor.from_dict(payload.get("executor", payload))
+        self._require_colony_owner(identity, ex.colonyname)
+        if not ex.executorid or not ex.executortype:
+            raise ValidationError("executor needs executorid and executortype")
+        ex.state = "pending"
+        ex.commissiontime_ns = now_ns()
+        self.db.add_executor(ex)
+        return ex.to_dict()
+
+    def _set_executor_state(self, identity: str, payload: dict, state: str) -> dict:
+        ex = self.db.get_executor(payload["executorid"])
+        self._require_colony_owner(identity, ex.colonyname)
+        self.db.set_executor_state(ex.executorid, state)
+        return {"executorid": ex.executorid, "state": state}
+
+    def _h_approve_executor(self, identity: str, payload: dict) -> dict:
+        return self._set_executor_state(identity, payload, "approved")
+
+    def _h_reject_executor(self, identity: str, payload: dict) -> dict:
+        return self._set_executor_state(identity, payload, "rejected")
+
+    def _h_remove_executor(self, identity: str, payload: dict) -> dict:
+        ex = self.db.get_executor(payload["executorid"])
+        self._require_colony_owner(identity, ex.colonyname)
+        self.db.remove_executor(ex.executorid)
+        return {"executorid": ex.executorid, "removed": True}
+
+    def _h_list_executors(self, identity: str, payload: dict) -> list[dict]:
+        colony = payload["colonyname"]
+        self._require_member(identity, colony)
+        return [e.to_dict() for e in self.db.list_executors(colony)]
+
+    def _h_add_user(self, identity: str, payload: dict) -> dict:
+        colony = payload["colonyname"]
+        self._require_colony_owner(identity, colony)
+        user = {"userid": payload["userid"], "username": payload.get("username", ""),
+                "colonyname": colony}
+        self.db.user_put(user)
+        return user
+
+    def _h_list_users(self, identity: str, payload: dict) -> list[dict]:
+        colony = payload["colonyname"]
+        self._require_member(identity, colony)
+        return self.db.user_list(colony)
+
+    def _h_add_function(self, identity: str, payload: dict) -> dict:
+        colony = payload["colonyname"]
+        ex = self._require_executor(identity, colony)
+        self.db.add_function(ex.executorid, colony, payload["funcname"])
+        return {"executorid": ex.executorid, "funcname": payload["funcname"]}
+
+    def _h_list_functions(self, identity: str, payload: dict) -> list[dict]:
+        colony = payload["colonyname"]
+        self._require_member(identity, colony)
+        return self.db.list_functions(colony, payload.get("executorid"))
+
+    # -- submit -------------------------------------------------------------
+    def _h_submit(self, identity: str, payload: dict) -> dict:
+        spec = FunctionSpec.from_dict(payload.get("spec", payload))
+        if not spec.conditions.colonyname:
+            raise ValidationError("spec.conditions.colonyname required")
+        if not spec.conditions.executortype:
+            raise ValidationError("spec.conditions.executortype required")
+        self._require_member(identity, spec.conditions.colonyname)
+        p = Process.create(spec)
+        self.db.add_process(p)
+        self._notify_queue([self._queue_key(p)])
+        return p.to_dict()
+
+    def _h_submit_workflow(self, identity: str, payload: dict) -> dict:
+        wf = WorkflowSpec.from_dict(payload.get("workflow", payload))
+        colony = wf.colonyname or (wf.specs[0].conditions.colonyname if wf.specs else "")
+        if not colony:
+            raise ValidationError("workflow needs a colonyname")
+        self._require_member(identity, colony)
+        if not wf.specs:
+            raise ValidationError("empty workflow")
+        for s in wf.specs:
+            s.conditions.colonyname = s.conditions.colonyname or colony
+        wf.validate()
+        procs = self.submit_workflow_processes(wf)
+        self._notify_queue([self._queue_key(p) for p in procs if not p.wait_for_parents])
+        return {"workflowid": procs[0].workflowid, "processes": [p.to_dict() for p in procs]}
+
+    def submit_workflow_processes(self, wf: WorkflowSpec) -> list[Process]:
+        """DAG expansion (paper §3.4.2): one process per node, linked by ids."""
+        procs = expand_workflow(wf)
+        for p in procs:
+            self.db.add_process(p)
+        return procs
+
+    # -- assign ---------------------------------------------------------------
+    def _h_assign(self, identity: str, payload: dict) -> dict:
+        colony = payload["colonyname"]
+        timeout = float(payload.get("timeout", 10.0))
+        ex = self._require_executor(identity, colony)
+        p = self.assign(colony, ex, timeout)
+        if p is None:
+            raise TimeoutError_("no process assigned within timeout")
+        return p.to_dict()
+
+    def assign(self, colony: str, ex: Executor, timeout: float) -> Process | None:
+        """Long-poll assignment (paper §3.3: the server *hangs* the request):
+        the request parks on its (colony, executortype) signal and is woken
+        when that queue gains work."""
+        deadline = now_ns() + int(timeout * 1e9)
+        sig = self._signal((colony, ex.executortype))
+        while not self._stop.is_set():
+            with sig.cv:
+                version = sig.version
+            p = self._try_assign_once(colony, ex)
+            if p is not None:
+                return p
+            remaining = (deadline - now_ns()) / 1e9
+            if remaining <= 0:
+                return None
+            with sig.cv:
+                if sig.version == version:  # nothing arrived since the probe
+                    sig.cv.wait(timeout=remaining)
+        return None
+
+    def _try_assign_once(self, colony: str, ex: Executor) -> Process | None:
+        with self.db.colony_lock(colony):
+            for p in self.db.candidates(colony, ex.executortype, ex.executorname):
+                if p.state != WAITING:
+                    continue
+                ts = now_ns()
+                p.state = RUNNING
+                p.isassigned = True
+                p.assignedexecutorid = ex.executorid
+                p.starttime_ns = ts
+                maxexec = p.spec.maxexectime
+                p.deadline_ns = ts + maxexec * 10**9 if maxexec and maxexec > 0 else 0
+                # Dataflow (Table 4): inputs = concatenated parent outputs.
+                if p.parents:
+                    p.inputs = [x for pid in p.parents for x in self.db.get_process(pid).output]
+                self.db.update_process(p)
+                return p
+        return None
+
+    # -- close ---------------------------------------------------------------
+    def _h_close(self, identity: str, payload: dict) -> dict:
+        p = self.db.get_process(payload["processid"])
+        ex = self._require_executor(identity, p.colonyname)
+        if p.assignedexecutorid != ex.executorid or p.state != RUNNING:
+            # e.g. the failsafe already reset this process (paper §4.1:
+            # "The previous executor then receives an error").
+            raise ConflictError("process is not assigned to this executor")
+        self.close_process(p, bool(payload.get("successful", True)), payload.get("out", []),
+                           payload.get("errors", []), ex.executorid, ts=now_ns())
+        return self.db.get_process(p.processid).to_dict()
+
+    def close_process(self, p: Process, succeeded: bool, output: list[Any], errors: list[str],
+                      expected_executorid: str, *, ts: int) -> None:
+        """Close and propagate through the DAG (paper §3.4.2). The process
+        is re-checked under the colony lock (still RUNNING, still owned by
+        ``expected_executorid``), so a failsafe reset in between turns this
+        into a ``ConflictError``."""
+        released: list[tuple[str, str]] = []
+        with self.db.colony_lock(p.colonyname):
+            fresh = self.db.get_process(p.processid)
+            if fresh.state != RUNNING:
+                raise ConflictError("process is not running")
+            if fresh.assignedexecutorid != expected_executorid:
+                raise ConflictError("process is not assigned to this executor")
+            fresh.state = SUCCESSFUL if succeeded else FAILED
+            fresh.endtime_ns = ts
+            fresh.output = list(output)
+            fresh.errors = list(errors)
+            fresh.deadline_ns = 0
+            self.db.update_process(fresh)
+            if succeeded:
+                for child_id in fresh.children:
+                    child = self._maybe_release_child(child_id)
+                    if child is not None:
+                        released.append(self._queue_key(child))
+            else:
+                # fail the descendants, so that the workflow ends
+                self._fail_descendants(fresh, f"parent process {fresh.processid} failed", ts)
+        if released:
+            self._notify_queue(released)
+
+    def _maybe_release_child(self, child_id: str) -> Process | None:
+        child = self.db.get_process(child_id)
+        if not child.wait_for_parents:
+            return None
+        if any(self.db.get_process(pid).state != SUCCESSFUL for pid in child.parents):
+            return None
+        child.wait_for_parents = False
+        self.db.update_process(child)
+        return child
+
+    def _fail_descendants(self, p: Process, reason: str, ts: int) -> None:
+        for child_id in p.children:
+            child = self.db.get_process(child_id)
+            if child.state in (WAITING, RUNNING):
+                child.state = FAILED
+                child.endtime_ns = ts
+                child.errors = [reason]
+                self.db.update_process(child)
+                self._fail_descendants(child, reason, ts)
+
+    # -- dynamic children (MapReduce on the fly, paper §3.4.2) ----------------
+    def _h_add_child(self, identity: str, payload: dict) -> dict:
+        parent_id = payload["processid"]
+        parent = self.db.get_process(parent_id)
+        ex = self._require_executor(identity, parent.colonyname)
+        if parent.assignedexecutorid != ex.executorid or parent.state != RUNNING:
+            raise AuthError("only the assigned executor may extend the DAG")
+        spec = FunctionSpec.from_dict(payload["spec"])
+        spec.conditions.colonyname = parent.colonyname
+        child = Process.create(spec)
+        with self.db.colony_lock(parent.colonyname):
+            parent = self.db.get_process(parent_id)  # re-read under the lock
+            if parent.assignedexecutorid != ex.executorid or parent.state != RUNNING:
+                raise ConflictError("parent closed or reassigned while extending the DAG")
+            child.workflowid = parent.workflowid
+            if payload.get("waitforparent", False):
+                child.parents = [parent_id]
+                child.wait_for_parents = True
+            self.db.add_process(child)
+            parent.children = parent.children + [child.processid]
+            self.db.update_process(parent)
+        if not child.wait_for_parents:
+            self._notify_queue([self._queue_key(child)])
+        return child.to_dict()
+
+    # -- introspection ---------------------------------------------------------
+    def _h_get_process(self, identity: str, payload: dict) -> dict:
+        p = self.db.get_process(payload["processid"])
+        self._require_member(identity, p.colonyname)
+        return p.to_dict()
+
+    def _h_get_processes(self, identity: str, payload: dict) -> list[dict]:
+        colony = payload["colonyname"]
+        self._require_member(identity, colony)
+        return [p.to_dict() for p in self.db.list_processes(
+            colony, payload.get("state"), int(payload.get("count", 100)))]
+
+    def _h_stats(self, identity: str, payload: dict) -> dict:
+        colony = payload["colonyname"]
+        self._require_member(identity, colony)
+        stats: dict[str, int] = {s: 0 for s in STATES}
+        stats.update(self.db.colony_stats(colony))
+        stats["executors"] = len(self.db.list_executors(colony))
+        stats["failsafe_errors"] = self.failsafe_errors
+        return stats
+
+    # -- failsafe (paper §3.4) --------------------------------------------------
+    def failsafe_scan(self) -> dict:
+        """One failsafe pass. A running process past its ``maxexectime``
+        goes back to the queue with ``retries + 1`` (or fails once its
+        retries are spent); a waiting one past its ``maxwaittime`` fails.
+        Each change is re-checked under the colony lock."""
+        ts = now_ns()
+        reset = failed = expired = 0
+        woken: list[tuple[str, str]] = []
+        for p in self.db.running_past_deadline(ts):
+            with self.db.colony_lock(p.colonyname):
+                if p.state != RUNNING or not p.deadline_ns or p.deadline_ns >= ts:
+                    continue  # closed or re-assigned since the scan
+                if p.retries + 1 > max(p.spec.maxretries, 0):
+                    p.state = FAILED
+                    p.endtime_ns = ts
+                    p.errors = p.errors + ["maxretries exceeded after maxexectime reset"]
+                    self.db.update_process(p)
+                    self._fail_descendants(p, f"parent process {p.processid} failed", ts)
+                    failed += 1
+                else:
+                    p.state = WAITING
+                    p.isassigned = False
+                    p.assignedexecutorid = ""
+                    p.starttime_ns = 0
+                    p.deadline_ns = 0
+                    p.retries += 1
+                    self.db.update_process(p)
+                    woken.append(self._queue_key(p))
+                    reset += 1
+        for p in self.db.waiting_past_deadline(ts):
+            with self.db.colony_lock(p.colonyname):
+                if p.state != WAITING or not p.waitdeadline_ns or p.waitdeadline_ns >= ts:
+                    continue
+                p.state = FAILED
+                p.endtime_ns = ts
+                p.errors = p.errors + ["maxwaittime exceeded"]
+                self.db.update_process(p)
+                self._fail_descendants(p, f"parent process {p.processid} failed", ts)
+                expired += 1
+        if woken:
+            self._notify_queue(woken)
+        return {"reset": reset, "failed": failed, "waitexpired": expired}
+
+    def start_background(self, failsafe_interval: float = 0.25) -> None:
+        """Run the failsafe scan and the extensions' ticks every
+        ``failsafe_interval`` seconds. The loop survives anything a scan
+        throws: failures are counted (``colonystats``' ``failsafe_errors``)
+        and the first is logged."""
+
+        def loop() -> None:
+            while not self._stop.wait(failsafe_interval):
+                try:
+                    self.failsafe_scan()
+                    for ext in self.extensions:
+                        ext.tick()
+                except Exception:
+                    if self.failsafe_errors == 0:
+                        logging.getLogger(__name__).exception("failsafe loop error")
+                    self.failsafe_errors += 1
+
+        self._failsafe_thread = threading.Thread(target=loop, daemon=True)
+        self._failsafe_thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._notify_queue()
+        if self._failsafe_thread is not None:
+            self._failsafe_thread.join(timeout=2)
+
+    # -- queue wakeups -------------------------------------------------------
+    @staticmethod
+    def _queue_key(p: Process) -> tuple[str, str]:
+        return (p.colonyname, p.spec.conditions.executortype)
+
+    def _signal(self, key: tuple[str, str]) -> _QueueSignal:
+        with self._signals_guard:
+            sig = self._signals.get(key)
+            if sig is None:
+                sig = self._signals[key] = _QueueSignal()
+            return sig
+
+    def _notify_queue(self, keys: list[tuple[str, str]] | None = None) -> None:
+        """Wake long-poll waiters. ``keys=None`` (generators, stop) wakes all."""
+        if keys is None:
+            with self._signals_guard:
+                sigs = list(self._signals.values())
+        else:
+            sigs = [self._signal(k) for k in set(keys)]
+        for sig in sigs:
+            with sig.cv:
+                sig.version += 1
+                sig.cv.notify_all()

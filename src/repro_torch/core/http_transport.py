@@ -1,0 +1,91 @@
+"""HTTP transport (paper §3.3): signed JSON envelopes over POST /api.
+
+A copy of the client class ``HttpTransport`` of the reference's
+``repro/core/http_transport.py``, without its client-side fault sites,
+plus ``health()`` for the broker's ``GET /health``. The broker hangs
+``assign`` requests (long-poll) until a process matches or the timer
+expires; executors always dial the broker, never the reverse, so they
+can live behind firewalls/NATs exactly as the paper argues. The server
+is the broker's and is not copied.
+
+Stdlib only: urllib.
+"""
+
+from __future__ import annotations
+
+import http.client
+import json
+import urllib.error
+import urllib.request
+
+from .retry import RetryPolicy, send_with_retry
+
+
+class HttpTransport:
+    """Client side; compatible with client.Colonies.
+
+    One pass rotates over all endpoints — 421 means "follower, try the
+    next host" (leader failover), connection errors rotate the same way.
+    ``retry=RetryPolicy(...)`` re-runs the pass with capped jittered
+    backoff when every endpoint failed retryably (mid-election cluster,
+    restarting server) — see retry.py; safe for mutating RPCs because
+    the envelope's msgid makes the retry exactly-once server-side."""
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        fallbacks: list[tuple[str, int]] | None = None,
+        retry: RetryPolicy | None = None,
+    ):
+        self.endpoints = [(host, port)] + list(fallbacks or [])
+        self.retry = retry
+        self._preferred = 0
+
+    def health(self, timeout: float = 5.0) -> dict:
+        """``GET /health`` of the first endpoint (``{"status": "ok", ...}``)."""
+        host, port = self.endpoints[0]
+        with urllib.request.urlopen(f"http://{host}:{port}/health", timeout=timeout) as resp:
+            return json.loads(resp.read())
+
+    def send(self, envelope: dict, timeout: float = 90.0) -> dict:
+        return send_with_retry(lambda: self._send_once(envelope, timeout), self.retry)
+
+    def _send_once(self, envelope: dict, timeout: float) -> dict:
+        data = json.dumps(envelope).encode()
+        last: dict = {"error": "no endpoints", "status": 500}
+        order = list(range(len(self.endpoints)))
+        order = order[self._preferred :] + order[: self._preferred]
+        for idx in order:
+            host, port = self.endpoints[idx]
+            req = urllib.request.Request(
+                f"http://{host}:{port}/api",
+                data=data,
+                headers={"Content-Type": "application/json"},
+                method="POST",
+            )
+            try:
+                with urllib.request.urlopen(req, timeout=timeout) as resp:
+                    body = json.loads(resp.read())
+            except urllib.error.HTTPError as e:
+                try:
+                    body = json.loads(e.read())
+                except (ValueError, json.JSONDecodeError):
+                    body = {"error": str(e), "status": e.code}
+            except (
+                urllib.error.URLError,
+                TimeoutError,
+                ConnectionError,
+                http.client.HTTPException,
+            ) as e:
+                # Includes a broker that dies mid-request: it closes the
+                # socket without a reply, which surfaces here as
+                # RemoteDisconnected/ConnectionError.
+                last = {"error": f"transport: {e}", "status": 503}
+                continue
+            if body.get("status") == 421:  # follower — try next replica
+                last = body
+                continue
+            self._preferred = idx
+            return body
+        return last

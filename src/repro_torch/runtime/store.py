@@ -1,9 +1,11 @@
 """An in-memory CFS for the port's handlers, launchers and checkpoints.
 
 The four members the handlers and ``train.checkpoint.CheckpointManager``
-call on the reference's ``CFSClient``, with nothing behind them but a
-dict: the store the CLIs and the card's smoke run use while the broker
-side is not ported (ROADMAP A8).
+call on a ``core.fs.CFSClient``, with nothing behind them but a dict:
+the store of the CLIs (``launch.train``, ``launch.serve``) and of
+``chip_smoke.py``'s phases that run the handlers without a broker. An
+executor (``runtime.torch_executor``) uses a ``CFSClient`` against the
+broker instead.
 """
 
 from __future__ import annotations

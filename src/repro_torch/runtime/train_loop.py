@@ -4,16 +4,17 @@ The bodies of the reference's executor handlers
 (``runtime/jax_executor.py``: ``TrainerExecutor.train`` and
 ``.evaluate``, ``DataExecutor.prepare_data`` and the checkpoint restore
 of ``ServeExecutor``), with the same kwargs, defaults and return values,
-as plain functions of a CFS-like store and a colony name. A torch
-executor wraps them unchanged once the broker side is ported (ROADMAP
-A8).
+as plain functions of a CFS-like store and a colony name. The executors
+of ``runtime.torch_executor`` wrap them unchanged behind a broker; the
+CLIs call them directly.
 
 Every handler builds the smoke variant in float32 unless told otherwise,
 as the reference's ``_smoke_cfg`` does. ``train`` resumes from the run's
 ``latest.json`` checkpoint, so a call after a crash (``die_at_step``)
 loses at most ``checkpoint_every`` steps. The store is anything with
 ``upload_bytes``, ``download_bytes``, ``client.create_snapshot`` and
-``prvkey``: the reference's ``CFSClient``, or ``runtime.store.MemoryStore``.
+``prvkey``: a ``core.fs.CFSClient`` (the port's or the reference's), or
+``runtime.store.MemoryStore``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,13 @@ def _smoke_cfg(kwargs: dict) -> ModelConfig:
                     use_pallas=bool(kwargs.get("use_pallas", False)))
 
 
-def _init_state(cfg: ModelConfig, tcfg: TrainConfig, device: torch.device) -> dict:
+def _init_params(cfg: ModelConfig, tcfg: TrainConfig, device: torch.device) -> dict:
     gen = torch.Generator(device=device).manual_seed(tcfg.seed)
-    return init_state(init_params(model_spec(cfg), gen, torch.float32, device), tcfg)
+    return init_params(model_spec(cfg), gen, torch.float32, device)
+
+
+def _init_state(cfg: ModelConfig, tcfg: TrainConfig, device: torch.device) -> dict:
+    return init_state(_init_params(cfg, tcfg, device), tcfg)
 
 
 # ---------------------------------------------------------------------- data
@@ -148,17 +153,21 @@ def evaluate(store: Any, colony: str, *, device: str | torch.device = "cuda",
 
 
 # ----------------------------------------------------------- serve hand-off
-def serve_engine(store: Any, colony: str, *, arch: str = "stablelm-3b", max_len: int = 128,
-                 run: str | None = None, device: str | torch.device = "cuda") -> ServeEngine:
+def serve_engine(store: Any, colony: str, *, arch: str = "stablelm-3b", variant: str = "smoke",
+                 max_len: int = 128, run: str | None = None,
+                 device: str | torch.device = "cuda") -> ServeEngine:
     """The reference's ``ServeExecutor`` set-up: a ``ServeEngine`` on the
-    smoke config, serving the run's latest checkpoint when ``run`` is given
-    and one exists (the continuum's train→serve hand-off), else the fresh
-    init of seed 0."""
-    cfg = _smoke_cfg({"arch": arch})
+    ``variant`` config (smoke, as the reference hard-codes) in float32,
+    serving the run's latest checkpoint when ``run`` is given and one exists
+    (the continuum's train→serve hand-off), else the fresh init of seed 0.
+    Optimizer moments are built only to restore a checkpoint into."""
+    cfg = _smoke_cfg({"arch": arch, "variant": variant})
     dev = resolve_device(device)
-    state = _init_state(cfg, TrainConfig(), dev)
+    tcfg = TrainConfig()
+    params = _init_params(cfg, tcfg, dev)
     if run is not None:
-        restored = CheckpointManager(store, colony, run=run).restore_latest(state)
-        if restored is not None:
-            state = restored[0]
-    return ServeEngine(cfg, state["params"], max_len=max_len, device=dev)
+        ckpt = CheckpointManager(store, colony, run=run)
+        step = ckpt.latest_step()
+        if step is not None:
+            params = ckpt.restore(step, init_state(params, tcfg))["params"]
+    return ServeEngine(cfg, params, max_len=max_len, device=dev)

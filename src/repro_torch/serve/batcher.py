@@ -1,19 +1,63 @@
-"""Batch handler for generator-fired inference (paper §3.4.4 applied).
+"""Dynamic batching through ColonyOS generators (paper §3.4.4 applied).
 
-Port of the reference's ``serve/batcher.py::make_batch_handler``. A
-ColonyOS generator packs requests into one ``generate_batch`` process;
-the handler pads the prompts into one batch, runs the engine once and
-publishes each request's tokens under ``/results/<request_id>.json``.
+Port of the reference's ``serve/batcher.py``. Each inference request is a
+fire-and-forget ``pack`` (``InferenceClient``); the generator fires one
+``generate_batch`` process once ``queuesize`` requests accumulate (or the
+timeout lapses); the handler pads the prompts into one batch, runs the
+engine once and publishes each request's tokens under
+``/results/<request_id>.json``, which requesters poll.
 """
 
 from __future__ import annotations
 
 import json
+import secrets
+import time
 from typing import Any
 
 import numpy as np
 
+from ..core.client import Colonies
+from ..core.errors import NotFoundError, TimeoutError_
+from ..core.fs import CFSClient
+
 RESULTS_LABEL = "/results"
+
+
+class InferenceClient:
+    """Submit prompts as packs; poll CFS for results."""
+
+    def __init__(self, client: Colonies, cfs: CFSClient, colony: str, generatorid: str, prvkey: str):
+        self.client = client
+        self.cfs = cfs
+        self.colony = colony
+        self.generatorid = generatorid
+        self.prvkey = prvkey
+
+    def submit(self, prompt_tokens: list[int], max_new_tokens: int = 8) -> str:
+        rid = secrets.token_hex(8)
+        self.client.pack(
+            self.generatorid,
+            {"request_id": rid, "prompt": list(map(int, prompt_tokens)), "max_new_tokens": max_new_tokens},
+            self.prvkey,
+        )
+        return rid
+
+    def result(self, rid: str) -> list[int] | None:
+        try:
+            data = self.cfs.download_bytes(self.colony, RESULTS_LABEL, f"{rid}.json")
+        except NotFoundError:
+            return None
+        return json.loads(data)["tokens"]
+
+    def wait(self, rid: str, timeout: float = 30.0, poll: float = 0.05) -> list[int]:
+        deadline = time.time() + timeout
+        while time.time() < deadline:
+            r = self.result(rid)
+            if r is not None:
+                return r
+            time.sleep(poll)
+        raise TimeoutError_(f"request {rid} timed out")
 
 
 def pad_prompts(requests: list[dict]) -> np.ndarray:

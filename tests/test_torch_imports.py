@@ -17,6 +17,16 @@ TRAINING_MODULES = {
     "repro_torch.train.checkpoint", "repro_torch.runtime.train_loop", "repro_torch.launch.train",
     "repro_torch.runtime.store",
 }
+# the executors' slice: the copied client and broker sides of ColonyOS and
+# the executors
+EXECUTOR_MODULES = {
+    "repro_torch.core", "repro_torch.runtime.torch_executor", "repro_torch.broker",
+    *(f"repro_torch.core.{m}" for m in (
+        "errors", "retry", "crypto", "security", "idempotency", "spec", "process", "client",
+        "http_transport", "fs", "executor")),
+    *(f"repro_torch.broker.{m}" for m in (
+        "database", "server", "generator", "cfs", "http_server")),
+}
 
 
 def _forbidden(name: str) -> bool:
@@ -39,8 +49,9 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
-    assert len(imported) >= 38  # every module really was imported
+    assert len(imported) >= 57  # every module really was imported
     assert TRAINING_MODULES <= imported, TRAINING_MODULES - imported
+    assert EXECUTOR_MODULES <= imported, EXECUTOR_MODULES - imported
 
 
 def test_no_source_file_imports_jax_or_reference():
@@ -57,3 +68,24 @@ def test_no_source_file_imports_jax_or_reference():
                 continue
             offences += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
     assert not offences, offences
+
+
+def test_chip_smoke_names_reference_and_jax_modules():
+    sys.path.insert(0, str(ROOT))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(str(ROOT))
+    loaded = dict.fromkeys(["repro_torch", "repro_torch.core.client", "reprolib", "jaxtyping_x",
+                            "numpy", "repro", "repro.core.server", "jax", "jax.numpy", "jaxlib"])
+    assert chip_smoke.reference_modules(loaded) == [
+        "jax", "jax.numpy", "jaxlib", "jaxtyping_x", "repro", "repro.core.server"]
+    assert chip_smoke.reference_modules({"repro_torch": None, "torch": None}) == []
+    # after the port's executors are imported, as chip_smoke.py imports them
+    code = ("import sys, chip_smoke\n"
+            "import repro_torch.runtime.torch_executor, repro_torch.serve.batcher\n"
+            "print(chip_smoke.reference_modules(sys.modules))\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=""), timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
