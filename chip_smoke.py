@@ -13,21 +13,33 @@ Phases, each of which exits non-zero when it fails:
      spills, and the Mamba scan's resident blocks per SM;
   3. each kernel against its plain-torch twin on the card, case by case
      (the Mamba scan also at both ends of jamba's decay range and with x
-     in bfloat16);
-  4. the slices: stablelm-3b and rwkv6-7b at full width and depth, and
-     jamba-1.5-large without experts at full width and 16 layers, each in
-     bf16 with seeded random weights, answer 8 requests in batches of 4
-     through the batch handler; with every launch count set to 0 just
-     before, each kernel must launch exactly as often per prefill as the
-     slice's layout says (and a kernel it does not name, never), and
-     greedy output must repeat exactly;
-  5. granite, rwkv6 and jamba (smoke, f32) on the card (kernels) against
-     the CPU (plain twins) on the same weights: logits and greedy tokens;
+     in bfloat16); where a case's window is shorter than its sequence, the
+     twin without the window and with a shorter one must fail the case's
+     bar;
+  4. the slices: stablelm-3b and rwkv6-7b at full width and depth,
+     jamba-1.5-large without experts at full width and 16 layers, and
+     mixtral-8x7b at every published width and 16 of 32 layers
+     (``half-depth``), each in bf16 with seeded random weights, answer 8
+     requests in batches of 4 through the batch handler; with every launch
+     count set to 0 just before, each kernel must launch exactly as often
+     per prefill as the slice's layout says (and a kernel it does not name,
+     never), and greedy output must repeat exactly. For mixtral the served
+     tokens must also equal direct ``generate``, the share of dropped
+     (token, choice) pairs is printed for a prefill (also split between
+     the left padding and the prompts' own tokens) and a decode step, and
+     ``[mixtral-swa]`` holds 16 decode steps past the 4,096-token window
+     (B=1, prompt 4,352) to the forward at the bf16 bar, with B1 launched
+     once per layer in the forward and in the prefill, while the forward
+     without the window must fall outside that bar;
+  5. granite, rwkv6, jamba (with and without experts), mixtral, starcoder2
+     and qwen2.5 (smoke, f32) on the card (kernels) against the CPU (plain
+     twins) on the same weights: logits and greedy tokens;
   6. ``[grad]``: flash attention under grad (``FlashAttentionFn``): one
      kernel launch per forward, the kernel's own output, and dq/dk/dv
-     against autograd through the plain twin on the card; the WKV and scan
-     kernels refuse to run under grad; the backward's recomputation timed
-     at stablelm's training shape;
+     against autograd through the plain twin on the card; the same for
+     the WKV and scan kernels under grad (``WkvFn``, ``MambaScanFn``), at
+     their f32 bar and at the decay clip's top (w0 = 4); the attention
+     backward's recomputation timed at stablelm's training shape;
   7. ``[train-full]``: stablelm-3b at full width and depth (bf16, remat
      "full", AdamW, B=4, S=1024, 2 microbatches) takes 3 steps of
      ``make_train_step``: finite losses and grad norms, a first CE near
@@ -44,8 +56,10 @@ Phases, each of which exits non-zero when it fails:
      algorithms, in a process of its own with a fixed cuBLAS workspace),
      and greedy tokens equal those of the in-memory params;
   9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
-     the same parameters and batches, AdamW and Adafactor, 1 and 2
-     microbatches: loss, grad norm and parameters at ``TRAIN_CROSS_*``;
+     the same parameters and batches, 1 and 2 microbatches, for stablelm
+     (AdamW and Adafactor), mixtral, rwkv6 and jamba with experts (AdamW):
+     loss, grad norm and parameters at each case's bar in
+     ``TRAIN_CROSS_CASES``, and exact launch counts on the card;
  10. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
      in a process of its own (``BROKER_SOURCE``: signatures verified, no
      torch, no jax, no module of ``repro``), reached
@@ -66,8 +80,10 @@ Phases, each of which exits non-zero when it fails:
      then holds no module of ``repro`` or JAX;
  13. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
-     serving shapes beside the card's bound (the Mamba scan also beside
-     the least time of its exponentials on the special-function unit).
+     serving shapes beside the card's bound (flash attention also at
+     mixtral's window of 4,096 over 4,352 tokens; the Mamba scan also
+     beside the least time of its exponentials on the special-function
+     unit).
 The last line is the JSON result; the line before it lists the kernels,
 and the one before that names the card.
 """
@@ -92,6 +108,12 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 
+# The bf16 bar at mixtral's shapes: a row there averages hundreds to
+# thousands of keys, so outputs are about 0.03 and an absolute 3e-2 would
+# pass a kernel that ignores the window. 4e-3 absolute with two bf16 steps
+# relative (1.6e-2) holds them; phase_kernel_cases shows that a twin
+# without the window, or with one 128-key tile less, fails it.
+MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL = 4e-3, 1.6e-2
 # (B, S, H, KV, D, window, plain-twin kv block, dtype, atol, rtol, label)
 FLASH_CASES = [
     (1, 128, 4, 4, 32, 0, 64, torch.float32, 2e-5, 1e-4, "MHA"),
@@ -117,6 +139,15 @@ FLASH_CASES = [
     (4, 16, 4, 4, 16, 0, 16, torch.float32, 2e-5, 1e-4, "executors smoke serve f32"),
     (4, 300, 32, 32, 80, 0, 128, torch.float32, 2e-5, 1e-4, "executors stablelm serving S=300 f32"),
     (4, 200, 32, 32, 80, 0, 128, torch.float32, 2e-5, 1e-4, "executors stablelm serving S=200 f32"),
+    # the smoke configs [cross-device] and [train-cross] run in float32
+    (2, 72, 4, 2, 16, 8, 16, torch.float32, 2e-5, 1e-4, "mixtral smoke window 8 f32"),
+    (2, 72, 6, 2, 16, 0, 16, torch.float32, 2e-5, 1e-4, "starcoder2 smoke GQA group 3 f32"),
+    (2, 72, 5, 1, 16, 0, 16, torch.float32, 2e-5, 1e-4, "qwen2.5 smoke GQA group 5, D=16 f32"),
+    # mixtral half-depth: serving, and the window at full width
+    (4, 300, 32, 8, 128, 4096, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "mixtral serving S=300"),
+    (1, 4352, 32, 8, 128, 4096, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "mixtral window 4096, S=4352"),
 ]
 # (S, D, dtype, atol, rtol): bidirectional, ragged S, GQA group 2
 BIDIR_CASES = [
@@ -128,6 +159,8 @@ PROMPT_LENS = [8, 300, 37, 129, 64, 200, 17, 150]  # batches of 4: S = 300, then
 NEW_TOKENS = 16
 TIMING_SHAPE = (4, 2048, 32, 32, 80)  # B, S, H, KV, D: stablelm prefill
 FLASH_SERVING_SHAPES = {"stablelm S=300": (4, 300, 32, 32, 80), "jamba S=300": (4, 300, 64, 8, 128)}
+# [mixtral-swa]: B, S, H, KV, D and the window at which the window bites
+SWA_SHAPE, SWA_WINDOW = (1, 4352, 32, 8, 128), 4096
 
 # (B, T, H, K = V, chunk, nonzero s0, constant logw or None, label); f32,
 # atol 1e-4 / rtol 1e-3 as in tests/test_kernels.py. The chunk tiles the
@@ -181,6 +214,18 @@ MUFU_PER_CLOCK = 16  # exponentials per clock on each SM (ex2 on the special-fun
 # [grad]: FLASH_CASES labels whose gradients are checked on the card
 GRAD_CASES = ["MHA", "GQA group 4, D=64", "sliding window 48", "ragged S=300 f32", "bf16",
               "stablelm B=2 S=1024"]
+# [grad] for the WKV and scan kernels: (label, B, T, H or DI, K or N, chunk,
+# then a constant logw or None for WKV, x's dtype for the scan); w0 = 4 is
+# the decay clip's top, where the reference's gradient is NaN (ROADMAP
+# C13). The first case of each is a layer of [train-cross]'s smoke step,
+# where the backward is also timed.
+WKV_GRAD_CASES = [("rwkv6 smoke train step", 4, 64, 4, 16, 32, None),
+                  ("rwkv6-7b heads, T=64", 1, 64, 64, 64, 32, None),
+                  ("w0 = 4 (C13)", 2, 64, 4, 16, 32, -math.exp(4.0))]
+MAMBA_GRAD_CASES = [("jamba smoke train step", 4, 64, 128, 4, 64, torch.float32),
+                    ("jamba smoke width, T=67", 2, 67, 128, 4, 1, torch.float32),
+                    ("N=16, T=120", 2, 120, 512, 16, 60, torch.float32),
+                    ("bf16 x, N=16, T=120", 2, 120, 512, 16, 60, torch.bfloat16)]
 # [train-full]: stablelm-3b, B=4, S=1024, 2 microbatches, 3 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 1024, 2, 3
 # [continuum]: the reference handlers' smoke run, cut to 6 steps of 4 x 64.
@@ -193,6 +238,18 @@ CONTINUUM_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 # [train-cross]: cuda against cpu after 3 smoke f32 steps; the largest
 # differences measured on an H100 were 1.9e-6 (grad norm) and 3.2e-7 (params)
 TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL = 1e-5, 1e-5
+# (arch, variant, optimizers, (atol, rtol), reseed name): stablelm and
+# mixtral run only B1 and plain torch, at the stablelm bar; rwkv6 (B2) and
+# jamba with experts (B3, B1) at the WKV and scan kernels' f32 bar
+TRAIN_CROSS_CASES = [
+    ("stablelm-3b", "smoke", ("adamw", "adafactor"), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
+    ("mixtral-8x7b", "smoke", ("adamw",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
+    ("rwkv6-7b", "smoke", ("adamw",), (WKV_ATOL, WKV_RTOL), "rwkv"),
+    ("jamba-1.5-large-398b", "smoke", ("adamw",), (MAMBA_ATOL, MAMBA_RTOL), "jamba"),
+]
+# mixtral half-depth: 16 layers of [attention (window 4096) + 8 experts]
+MIXTRAL_PER_PREFILL = {"flash_attention": 16}
+MIXTRAL_PARAMS = 23_482_470_400
 
 
 def check(ok: bool, msg: str) -> None:
@@ -227,11 +284,14 @@ def cuda_ms(fn, warmup: int, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int) -> float:
+def device_ms(fn, iters: int, repeats: bool = False) -> float:
     """Mean device time per call: for each kernel ``fn`` launches, its
     device time under the profiler over the launches the profiler recorded
     of it (at most ``iters``), summed over the kernels. Unlike ``cuda_ms``
-    it leaves out any gap between launches."""
+    it leaves out any gap between launches. With ``repeats`` (a library
+    call, which may launch one kernel more than once) a kernel may launch
+    more often than ``iters``, and its time per launch counts as many times
+    a call as it launched (its count over ``iters``, rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -246,14 +306,16 @@ def device_ms(fn, iters: int) -> float:
         calls = max((e.count for e in events), default=0)
         if calls:
             break
-    check(0 < calls <= iters, f"the profiler recorded {calls} launches of {iters} calls")
+    check(0 < calls and (repeats or calls <= iters),
+          f"the profiler recorded {calls} launches of {iters} calls")
     if calls < iters:
         print(f"[time] the profiler recorded {calls} of {iters} calls")
-    return sum(e.self_device_time_total / e.count for e in events if e.count) / 1e3
+    return sum(e.self_device_time_total / e.count * (max(1, round(e.count / iters)) if repeats else 1)
+               for e in events if e.count) / 1e3
 
 
 def timed(fn, warmup: int, iters: int, dev_iters: int, bound_ms: float,
-          what: str) -> tuple[float, float]:
+          what: str, repeats: bool = False) -> tuple[float, float]:
     """(``cuda_ms``, ``device_ms``) of ``fn``. The device time is the mean
     of two profiles, and all is measured again (at most five times) until
     the two agree within 5% and both lie between the bound and the events
@@ -262,7 +324,7 @@ def timed(fn, warmup: int, iters: int, dev_iters: int, bound_ms: float,
     time reads above the events' wall time."""
     for _ in range(5):
         events_ms = cuda_ms(fn, warmup, iters)
-        devs = [device_ms(fn, dev_iters) for _ in range(2)]
+        devs = [device_ms(fn, dev_iters, repeats) for _ in range(2)]
         if bound_ms <= min(devs) and max(devs) <= min(events_ms * 1.05, min(devs) * 1.05):
             return events_ms, sum(devs) / 2
         print(f"[time] {what}: device {devs[0]:.4f} and {devs[1]:.4f} ms disagree, or lie "
@@ -341,6 +403,14 @@ def phase_kernel_cases() -> float:
               f"{str(dtype).split('.')[-1]} max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"kernel disagrees with its plain twin: {label}")
+        if 0 < window < s:  # the bar must see the window: wrong windows fail it
+            for wrong in (0, window - min(128, window // 2)):
+                off = plain_bshd(q, k, v, True, wrong, blk).float()
+                seen = not torch.allclose(off, ref.float(), atol=atol, rtol=rtol)
+                print(f"[kernel] {label}: the twin with window {wrong} is off by "
+                      f"{(off - ref.float()).abs().max().item():.3e}, "
+                      f"{'outside the bar: ok' if seen else 'within the bar: FAIL'}")
+                check(seen, f"{label}: the twin with window {wrong} passes the bar")
         if dtype == torch.bfloat16 and h == 32:
             worst_bf16 = max(worst_bf16, err)
     for s, d, dtype, atol, rtol in BIDIR_CASES:
@@ -462,10 +532,13 @@ def phase_mamba_cases() -> float:
 
 
 def phase_slice(arch: str, variant: str, prompt_lens: list[int],
-                per_prefill: dict[str, int]) -> tuple[dict, dict]:
+                per_prefill: dict[str, int], after=None) -> tuple[dict, dict]:
     """Serve ``arch`` at a real size; in the first run every kernel of
     ``kernel_modules()`` must launch ``per_prefill[name]`` times per prefill
-    (0 for a kernel not named). Returns the launch counts and the stats."""
+    (0 for a kernel not named). ``after(engine, requests, served, tag)``,
+    when given, runs on the same engine before it is freed and returns
+    more stats with its launch counts under ``"launches"``. Returns the
+    launch counts and the stats."""
     from repro_torch.launch.serve import build_engine, make_requests, serve
     from repro_torch.runtime.store import MemoryStore
     from repro_torch.serve.batcher import result_tokens
@@ -516,9 +589,194 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
              "batch_s": runs[1][1], "tokens_per_s": len(requests) * NEW_TOKENS / sum(runs[1][1]),
              "peak_bytes": peak}
     stats.update(breakdown(engine, requests[:4], tag))
+    if after is not None:
+        stats.update(after(engine, requests, runs[0][0], tag))
     del engine
     torch.cuda.empty_cache()
     return counts, stats
+
+
+class MoeDrops:
+    """While entered, the router ``repro_torch.models.moe._route`` (which
+    ``moe_fwd`` calls once a call and whose aux it returns) is wrapped so
+    that every MoE call's share of dropped (token, choice) pairs lands in
+    ``self.shares`` and its kept choices per grouped row in ``self.kept``,
+    as tensors on the card (read after the run)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.route, self.shares, self.kept = moe, moe._route, [], []
+
+        def counting(x, router, cfg):
+            dispatch, combine, aux = self.route(x, router, cfg)
+            self.shares.append(aux["dropped_frac"].detach())
+            self.kept.append(dispatch.detach().sum((-2, -1)).reshape(-1))
+            return dispatch, combine, aux
+
+        moe._route = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
+
+    def take(self) -> list[float]:
+        out = [float(x) for x in self.shares]
+        self.shares = []
+        return out
+
+    def split(self, real: torch.Tensor, k: int) -> tuple[list[float], list[float]]:
+        """For each call since the last ``split``: the dropped share of the
+        pairs of the rows where ``real`` (B, S) holds, and the share of all
+        of the call's dropped pairs that lie on the other (padded) rows."""
+        flat = real.reshape(-1)
+        on_real, on_pad = [], []
+        for kept in self.kept:
+            rows = kept[: flat.numel()]  # the group's own zero rows come last
+            dropped = k * kept.numel() - kept.sum()
+            on_real.append(float(1 - rows[flat].sum() / (k * flat.sum())))
+            on_pad.append(float((k * (~flat).sum() - rows[~flat].sum()) / dropped.clamp(min=1)))
+        self.kept = []
+        return on_real, on_pad
+
+
+def mixtral_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
+    """mixtral half-depth: every published width at 16 layers
+    (``MIXTRAL_PARAMS``); the served tokens equal direct ``generate`` on
+    each batch; the share of dropped (token, choice) pairs at one prefill
+    and one decode step of a batch of 4 (C16: a decode group of 4 tokens
+    has 1 slot per expert); then ``phase_mixtral_swa``."""
+    from repro_torch.models import count_params, decode_step, model_spec, prefill
+    from repro_torch.serve.batcher import pad_prompts
+
+    n_params = count_params(model_spec(engine.cfg))
+    check(n_params == MIXTRAL_PARAMS, f"{n_params} params, want {MIXTRAL_PARAMS}")
+    for i in range(0, len(requests), 4):
+        want = engine.generate(pad_prompts(requests[i : i + 4]), max_new_tokens=NEW_TOKENS).tolist()
+        check(served[i : i + 4] == want, f"batch {i // 4}: served tokens differ from generate")
+    print(f"{tag} served tokens equal direct generate on each of "
+          f"{len(requests) // 4} batches")
+    cfg = engine.cfg
+    tokens = torch.as_tensor(pad_prompts(requests[:4]), dtype=torch.long, device="cuda")
+    b, s = tokens.shape
+    lens = torch.tensor([len(r["prompt"]) for r in requests[:4]], device="cuda")
+    real = torch.arange(s, device="cuda")[None, :] >= s - lens[:, None]  # left padding
+    e, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    with torch.inference_mode(), MoeDrops() as drops:
+        logits, cache = prefill(engine.params, cfg, {"tokens": tokens}, engine.max_len)
+        at_prefill = drops.take()
+        on_real, on_pad = drops.split(real, k)
+        decode_step(engine.params, cfg, logits.argmax(-1), cache, s)
+        at_decode = drops.take()
+    caps = {n: max(1, int(min(cfg.moe.group_size, n) * k * cf / e)) for n in (b * s, b)}
+    shares = {"prefill": at_prefill, "decode": at_decode}
+    for name, n in (("prefill", b * s), ("decode", b)):
+        vals = shares[name]
+        check(len(vals) == cfg.num_layers, f"{name}: {len(vals)} MoE calls")
+        print(f"{tag} dropped (token, choice) pairs at one {name} (B={b}, {n} tokens a group, "
+              f"capacity {caps[n]} a expert): mean {sum(vals) / len(vals):.4f} over "
+              f"{len(vals)} MoE layers (min {min(vals):.4f}, max {max(vals):.4f})")
+    n_pad = int((~real).sum())
+    print(f"{tag} at that prefill the left padding is {n_pad} of {b * s} tokens (token 0 "
+          f"at the same positions in each row): it holds {sum(on_pad) / len(on_pad):.4f} of "
+          f"the dropped pairs (mean over layers; min {min(on_pad):.4f}, max {max(on_pad):.4f}); "
+          f"the prompts' own tokens drop {sum(on_real) / len(on_real):.4f} of their pairs "
+          f"(min {min(on_real):.4f}, max {max(on_real):.4f})")
+    swa_counts, swa = phase_mixtral_swa(engine)
+    return {"dropped_prefill": at_prefill, "dropped_prefill_real": on_real,
+            "dropped_prefill_on_pad": on_pad, "pad_tokens": n_pad,
+            "dropped_decode": at_decode, "capacity": caps, "swa": swa, "launches": swa_counts}
+
+
+def phase_mixtral_swa(engine) -> tuple[dict, dict]:
+    """[mixtral-swa]: the window bites at full width. B=1, a prompt of
+    window + 256 tokens: forward over prompt + 16, then prefill the prompt
+    and decode 16 tokens teacher-forced past the window through the ring
+    cache. Each decode step's logits are held to the forward's at that
+    position at the bf16 bar of tests/test_decode_consistency.py (atol
+    3e-2, rtol 1e-3); at B=1 no choice drops (C16). B1 must launch once per
+    layer in the forward and in the prefill, and never in decode. As a
+    control, the forward without the window must fall outside that bar at
+    one step at least, or the phase could not tell a B1 that ignores the
+    window."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    tag = "[mixtral-swa]"
+    cfg = engine.cfg
+    mods = kernel_modules()
+    s = SWA_SHAPE[1]
+    check(cfg.sliding_window == SWA_WINDOW, f"window {cfg.sliding_window}")
+    tokens = torch.randint(0, cfg.vocab_size, (1, s + NEW_TOKENS),
+                           generator=torch.Generator().manual_seed(7)).cuda()
+    counts, errs = {}, []
+    with torch.inference_mode(), MoeDrops() as drops:
+        for mod in mods.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = forward(engine.params, cfg, {"tokens": tokens})
+        torch.cuda.synchronize()
+        forward_s = time.perf_counter() - t0
+        counts["forward"] = {name: mod.launches for name, mod in mods.items()}
+        fwd_drops = drops.take()
+        for mod in mods.values():
+            mod.launches = 0
+        last, cache = prefill(engine.params, cfg, {"tokens": tokens[:, :s]}, s + NEW_TOKENS)
+        counts["prefill"] = {name: mod.launches for name, mod in mods.items()}
+        check(cache["layers"]["b0"]["k"].shape[2] == SWA_WINDOW,
+              f"ring cache {tuple(cache['layers']['b0']['k'].shape)}")
+        drops.take()
+        for mod in mods.values():
+            mod.launches = 0
+        pairs = [(last[:, 0], logits[:, s - 1])]
+        for pos in range(s, s + NEW_TOKENS):
+            dl, cache = decode_step(engine.params, cfg, tokens[:, pos : pos + 1], cache, pos)
+            pairs.append((dl[:, 0], logits[:, pos]))
+        counts["decode"] = {name: mod.launches for name, mod in mods.items()}
+        dec_drops = drops.take()
+        # the control: the same forward without the window
+        windowless, _ = forward(engine.params, cfg.copy(sliding_window=0), {"tokens": tokens})
+        drops.take()
+    for i, (got, want) in enumerate(pairs):
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(
+            got.float(), want.float(), atol=3e-2, rtol=1e-3)
+        errs.append(err)
+        what = "prefill's last" if i == 0 else f"decode pos {s + i - 1}"
+        print(f"{tag} {what} vs forward: max_abs_err {err:.3e} (atol 3e-2, rtol 1e-3) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{what} differs from the forward")
+    # The phase sees the window only if a forward without it (what a B1
+    # that ignored the window would give) falls outside the bar somewhere.
+    off = [(got.float(), windowless[:, s + i - 1].float()) for i, (got, _) in enumerate(pairs)
+           if i > 0]
+    off_errs = [(g - w).abs().max().item() for g, w in off]
+    outside = sum(not torch.allclose(g, w, atol=3e-2, rtol=1e-3) for g, w in off)
+    rms = {name: math.sqrt(sum(float(((g - w) ** 2).mean()) for g, w in p) / len(p))
+           for name, p in (("forward", [(g.float(), w.float()) for g, w in pairs[1:]]),
+                           ("windowless", off))}
+    print(f"{tag} control, the forward without the window: decode is off by max_abs_err "
+          f"{max(off_errs):.3e} (min over steps {min(off_errs):.3e}), outside the bar at "
+          f"{outside} of {len(off)} steps; rms over the steps {rms['windowless']:.3e} vs "
+          f"{rms['forward']:.3e} against the forward with the window "
+          f"{'ok' if outside else 'FAIL'}")
+    check(outside > 0, "decode agrees with a forward without the window: the phase cannot "
+          "see the window")
+    layers = cfg.num_layers
+    want = {"forward": {n: layers if n == "flash_attention" else 0 for n in mods},
+            "prefill": {n: layers if n == "flash_attention" else 0 for n in mods},
+            "decode": {n: 0 for n in mods}}
+    print(f"{tag} B=1, prompt {s} tokens (window {SWA_WINDOW} + {s - SWA_WINDOW}), "
+          f"{NEW_TOKENS} decode steps past the window: forward {forward_s:.4f} s; launches "
+          f"{json.dumps(counts)}; dropped share forward max {max(fwd_drops):.4f}, decode max "
+          f"{max(dec_drops):.4f}")
+    check(counts == want, f"launches {counts}, want {want}")
+    check(max(dec_drops) == 0.0, f"decode dropped choices at B=1: {dec_drops}")
+    total = {n: sum(c[n] for c in counts.values()) for n in mods}
+    return total, {"max_abs_err": max(errs), "forward_s": forward_s,
+                   "windowless_max_abs_err": max(off_errs), "windowless_outside": outside,
+                   "rms": rms,
+                   "dropped_forward_max": max(fwd_drops), "launches": counts}
 
 
 def breakdown(engine, requests: list[dict], tag: str) -> dict:
@@ -747,41 +1005,53 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
 
 
 def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
-                     plain_iters: int) -> dict:
-    """B1 in bf16, causal, at ``shape`` = (B, S, H, KV, D) on the kernel's
-    (B*H, S, D) layout: kernel, plain twin and SDPA (the same function on
-    (B, H, S, D), GQA by ``enable_gqa``), beside the bound. Kernel and SDPA
-    are timed twice: by CUDA events over back-to-back calls, and by their
-    device time alone."""
+                     plain_iters: int, window: int = 0, atol: float = 3e-2,
+                     rtol: float = 3e-2) -> dict:
+    """B1 in bf16, causal (within ``window`` when it is > 0), at ``shape``
+    = (B, S, H, KV, D) on the kernel's (B*H, S, D) layout: kernel, plain
+    twin and SDPA (the same function on (B, H, S, D): GQA by
+    ``enable_gqa``; with a window, k and v repeated to H heads before the
+    timed call and the window as a boolean mask), beside the bound. Kernel
+    and SDPA are timed twice: by CUDA events over back-to-back calls, and
+    by their device time alone."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import causal_mask
 
     b, s, h, kv, d = shape
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn((b * kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     group = h // kv
-    out = fa.flash_attention_cuda(q, k, v, group=group, causal=True)
-    ref = fa.flash_attention_plain(q, k, v, group=group, causal=True)
+    opts = {"group": group, "causal": True, "window": window}
+    out = fa.flash_attention_cuda(q, k, v, **opts)
+    ref = fa.flash_attention_plain(q, k, v, **opts)
     err = (out.float() - ref.float()).abs().max().item()
-    check(torch.allclose(out.float(), ref.float(), atol=3e-2, rtol=3e-2),
-          f"flash timing shape {label} disagrees: {err}")
-    flops = 4 * b * h * d * s * (s + 1) / 2  # q.k and p.v over the causal pairs
+    check(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol),
+          f"flash timing shape {label} disagrees: {err} (atol {atol}, rtol {rtol})")
+    w = window if window > 0 else s
+    pairs = w * (w + 1) / 2 + (s - w) * w  # query i sees min(i + 1, window) keys
+    flops = 4 * b * h * d * pairs  # q.k and p.v over the visible pairs
     nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     kernel_ms, kernel_dev = timed(
-        lambda: fa.flash_attention_cuda(q, k, v, group=group, causal=True), 3, 20, 50,
+        lambda: fa.flash_attention_cuda(q, k, v, **opts), 3, 20, 50,
         max(t_ops, t_bytes), f"flash {label}")
-    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, group=group, causal=True), 1,
-                       plain_iters)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts), 1, plain_iters)
     q4, k4, v4 = q.view(b, h, s, d), k.view(b, kv, s, d), v.view(b, kv, s, d)
+    if window > 0:
+        k4, v4 = (t.repeat_interleave(group, dim=1) for t in (k4, v4))
+        mask = causal_mask(s, s, window=window, device=q.device)
 
     def sdpa():
+        if window > 0:
+            return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
         return torch.nn.functional.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True, enable_gqa=group > 1)
 
-    library_ms, library_dev = timed(sdpa, 3, 20, 50, max(t_ops, t_bytes), f"sdpa {label}")
-    print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 causal: kernel "
-          f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+    library_ms, library_dev = timed(sdpa, 3, 20, 50, max(t_ops, t_bytes), f"sdpa {label}",
+                                    repeats=True)
+    print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 causal, window "
+          f"{window}: kernel {kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms (device {library_dev:.4f} ms); bound {max(t_ops, t_bytes):.4f} ms "
           f"({flops:.4g} ops -> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms); "
           f"{flops / kernel_dev / 1e9:.1f} TFLOP/s on the device; max_abs_err {err:.3e}")
@@ -796,6 +1066,9 @@ def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     main = flash_timing_row("prefill", TIMING_SHAPE, gen, 5)
     serving = {label: flash_timing_row(label, shape, gen, 20)
                for label, shape in FLASH_SERVING_SHAPES.items()}
+    serving["mixtral window 4096, S=4352"] = flash_timing_row(
+        "mixtral window 4096, S=4352", SWA_SHAPE, gen, 3, window=SWA_WINDOW,
+        atol=MIXTRAL_BF16_ATOL, rtol=MIXTRAL_BF16_RTOL)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -827,12 +1100,11 @@ def phase_grad() -> dict:
     """Flash attention under grad on the card: ``ops.flash_attention`` goes
     through ``FlashAttentionFn``, launches the kernel once and returns its
     output; dq/dk/dv match autograd through the plain twin on the card.
-    The WKV and scan kernels refuse grad. Returns the worst error and the
-    backward's time at stablelm's training shape."""
+    Then ``WkvFn`` and ``MambaScanFn`` (``phase_grad_scans``). Returns the
+    worst errors and the attention backward's time at stablelm's training
+    shape."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
     from repro_torch.kernels import ops
-    from repro_torch.kernels import rwkv6 as wkv
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     cases = {c[-1]: c for c in FLASH_CASES}
@@ -867,23 +1139,7 @@ def phase_grad() -> dict:
         worst = max(worst, *errs)
     print(f"[grad] largest gradient error against autograd through the plain twin: {worst:.3e}")
 
-    r = torch.randn((2, 16, 8), device="cuda", requires_grad=True)
-    wkv_args = (r, *(torch.randn((2, 16, 8), device="cuda") for _ in range(2)),
-                -torch.rand((2, 16, 8), device="cuda"), torch.zeros((2, 1, 8), device="cuda"),
-                torch.zeros((2, 8, 8), device="cuda"))
-    dt = torch.rand((1, 16, 8), device="cuda", requires_grad=True)
-    scan_args = (dt, torch.randn((1, 16, 4), device="cuda"), torch.randn((1, 16, 4), device="cuda"),
-                 -torch.rand((8, 4), device="cuda"), torch.randn((1, 16, 8), device="cuda"),
-                 torch.zeros((1, 8, 4), device="cuda"))
-    for name, fn, args in (("rwkv6_cuda", wkv.rwkv6_cuda, wkv_args),
-                           ("mamba_scan_cuda", ms.mamba_scan_cuda, scan_args)):
-        try:
-            fn(*args)
-        except RuntimeError as e:
-            check("queue B" in str(e), f"{name}: {e}")
-            print(f"[grad] {name} under grad raises: {str(e)[:80]}...")
-        else:
-            check(False, f"{name} returned a tensor without a gradient under grad")
+    scan_worst = phase_grad_scans(gen)
 
     # the backward of one attention layer at stablelm's training shape (one
     # microbatch: B=2, S=1024): the kernel forward, then the recomputation
@@ -904,7 +1160,82 @@ def phase_grad() -> dict:
     print(f"[grad] stablelm training shape B={b} S={s} H={h} D={d} bf16: forward (kernel) "
           f"{fwd_ms:.4f} ms, forward + backward (recomputation through the plain twin) "
           f"{both_ms:.4f} ms, so the backward {both_ms - fwd_ms:.4f} ms a layer")
-    return {"worst_err": worst, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms}
+    return {"worst_err": worst, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms, **scan_worst}
+
+
+def grads_against_twin(label: str, fn, twin, args: tuple[torch.Tensor, ...], mod,
+                       names: str) -> float:
+    """``fn`` (the kernel's autograd Function) under grad launches its
+    kernel once and none in the backward; its gradients equal autograd
+    through ``twin`` on the card at the kernels' f32 bar and are finite.
+    Returns the largest difference."""
+    gen = torch.Generator(device="cuda").manual_seed(len(label))
+    live = [a.clone().requires_grad_() for a in args]
+    before = mod.launches
+    outs = fn(*live)
+    check(mod.launches == before + 1 and outs[0].grad_fn is not None,
+          f"{label}: {mod.launches - before} launches, grad_fn {outs[0].grad_fn}")
+    cots = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
+    got = torch.autograd.grad(sum((o.float() * c).sum() for o, c in zip(outs, cots)), live)
+    check(mod.launches == before + 1, f"{label}: the backward launched the kernel")
+    ref_in = [a.clone().requires_grad_() for a in args]
+    want = torch.autograd.grad(
+        sum((o.float() * c).sum() for o, c in zip(twin(*ref_in), cots)), ref_in)
+    torch.cuda.synchronize()
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    ok = all(g.dtype == a.dtype and bool(torch.isfinite(g.float()).all()) and torch.allclose(
+        g.float(), w.float(), atol=WKV_ATOL, rtol=WKV_RTOL) for g, w, a in zip(got, want, args))
+    print(f"[grad] {label}: one launch, max_abs_err "
+          f"{' '.join(f'd{n} {e:.3e}' for n, e in zip(names.split(), errs))} "
+          f"(atol {WKV_ATOL}, rtol {WKV_RTOL}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"{label}: gradients disagree with autograd through the plain twin")
+    return max(errs)
+
+
+def phase_grad_scans(gen: torch.Generator) -> dict:
+    """``WkvFn`` and ``MambaScanFn``, applied as ``ops`` applies them under
+    grad, against autograd through their plain twins on the card; then one
+    layer's backward timed at the smoke train step."""
+    from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import rwkv6 as wkv
+
+    worst = {"wkv_grad_err": 0.0, "mamba_grad_err": 0.0}
+    timed_layers = {}
+    for label, b, t, h, k, chunk, logw in WKV_GRAD_CASES:
+        args = wkv_inputs(b, t, h, k, gen, True, logw)
+        fn = lambda *a, c=chunk: wkv.WkvFn.apply(*a, c)  # noqa: E731
+        err = grads_against_twin(
+            f"WkvFn {label}: B={b} T={t} H={h} K=V={k} chunk {chunk}", fn,
+            lambda *a, c=chunk: wkv.rwkv6_plain(*a, chunk=c), args, wkv, "r k v logw u s0")
+        worst["wkv_grad_err"] = max(worst["wkv_grad_err"], err)
+        timed_layers.setdefault("WkvFn", (fn, args))
+    for label, b, t, di, n, chunk, x_dtype in MAMBA_GRAD_CASES:
+        args = mamba_inputs(b, t, di, n, gen, True, "reference", x_dtype)
+        fn = lambda *a, c=chunk, d=di: ms.MambaScanFn.apply(*a, c, d)  # noqa: E731
+        err = grads_against_twin(
+            f"MambaScanFn {label}: B={b} T={t} DI={di} N={n} chunk {chunk}", fn,
+            lambda *a, c=chunk, d=di: ms.mamba_scan_plain(*a[:4], a[4].float(), a[5], chunk=c,
+                                                          d_block=d),
+            args, ms, "dt B C A x h0")
+        worst["mamba_grad_err"] = max(worst["mamba_grad_err"], err)
+        timed_layers.setdefault("MambaScanFn", (fn, args))
+
+    # one layer's backward at the smoke train step: the kernel forward, then
+    # the recomputation through the twin
+    for name, (fn, args) in timed_layers.items():
+        live = [a.clone().requires_grad_() for a in args]
+
+        def fwd_bwd():
+            outs = fn(*live)
+            torch.autograd.grad(sum(o.sum() for o in outs), live)
+
+        fwd_ms = cuda_ms(lambda: fn(*args), 2, 10)
+        both_ms = cuda_ms(fwd_bwd, 2, 10)
+        worst[f"{name}_fwd_ms"], worst[f"{name}_bwd_ms"] = fwd_ms, both_ms - fwd_ms
+        print(f"[grad] {name} at a smoke train step's layer: forward (kernel) {fwd_ms:.4f} ms, "
+              f"forward + backward (recomputation through the plain twin) {both_ms:.4f} ms, so "
+              f"the backward {both_ms - fwd_ms:.4f} ms")
+    return worst
 
 
 def host_copy(tree: dict) -> list[torch.Tensor]:
@@ -1153,55 +1484,89 @@ def phase_continuum_process() -> dict:
     return json.loads(lines[-1])
 
 
+def layer_kernels(cfg) -> dict[str, int]:
+    """How many layers of ``cfg`` launch each kernel of ``kernel_modules()``
+    in one forward pass."""
+    from repro_torch.models import decoder_layout
+
+    layout = decoder_layout(cfg)
+    kernel_of = {"attn": "flash_attention", "rwkv": "rwkv6_wkv", "mamba": "mamba_scan"}
+    return {name: layout.num_groups * sum(kernel_of[b.mixer] == name for b in layout.group)
+            for name in kernel_modules()}
+
+
 def phase_train_cross() -> dict:
-    """stablelm smoke in float32, 3 steps on the card against the CPU from
-    the same params and batches, for AdamW and Adafactor at 1 and 2
-    microbatches. Returns the largest differences seen."""
+    """Each of ``TRAIN_CROSS_CASES`` in float32: 3 steps on the card
+    against the CPU from the same params and batches, for its optimizers
+    at 1 and 2 microbatches; the kernels of its path (B1, B2 under
+    ``WkvFn``, B3 under ``MambaScanFn``) launch on the card, the plain
+    twins run on the CPU. Returns the card's launch counts and the largest
+    differences, per arch."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import SyntheticTokens, to_device
     from repro_torch.models import init_params, model_spec
     from repro_torch.train.train_step import init_state, make_train_step, split_microbatches
     from repro_torch.tree import leaves_with_names, map_leaves
 
-    cfg = get_config("stablelm-3b", "smoke").copy(param_dtype="float32", compute_dtype="float32")
-    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
-    data = SyntheticTokens(cfg, 4, 64, seed=1)
-    worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0, "opt": 0.0}
-    for optimizer in ("adamw", "adafactor"):
-        for k in (1, 2):
-            tcfg = TrainConfig(optimizer=optimizer, learning_rate=1e-3, warmup_steps=1,
-                               total_steps=10, microbatches=k)
-            states = {dev: init_state(map_leaves(lambda p: p.to(dev, copy=True), params), tcfg)
-                      for dev in ("cpu", "cuda")}
-            steps = {dev: make_train_step(cfg, tcfg) for dev in states}
-            for i in range(3):
-                host = data.batch_at(i)
-                if k > 1:
-                    host = split_microbatches(host, k)
-                metrics = {}
-                for dev in states:
-                    states[dev], metrics[dev] = steps[dev](states[dev], to_device(host, dev))
-                for key in ("loss", "grad_norm"):
-                    a, b = float(metrics["cuda"][key]), float(metrics["cpu"][key])
-                    err = abs(a - b)
-                    check(err <= TRAIN_CROSS_ATOL + TRAIN_CROSS_RTOL * abs(b),
-                          f"{optimizer} k={k} step {i} {key}: cuda {a} cpu {b}")
-                    worst[key] = max(worst[key], err)
-            for part in ("params", "opt"):
-                pairs = zip(leaves_with_names(states["cuda"][part]),
-                            leaves_with_names(states["cpu"][part]))
-                for (name, a), (_, b) in pairs:
-                    a = a.cpu()
-                    err = (a - b).abs().max().item()
-                    check(torch.allclose(a, b, atol=TRAIN_CROSS_ATOL, rtol=TRAIN_CROSS_RTOL),
-                          f"{optimizer} k={k} {name}: cuda vs cpu max_abs_err {err}")
-                    worst[part] = max(worst[part], err)
-            print(f"[train-cross] {optimizer}, {k} microbatch(es), 3 steps: loss "
-                  f"{float(metrics['cuda']['loss']):.6f} (cpu {float(metrics['cpu']['loss']):.6f}); "
-                  f"worst so far {json.dumps(worst)}")
-    print(f"[train-cross] cuda vs cpu within atol {TRAIN_CROSS_ATOL}, rtol {TRAIN_CROSS_RTOL}: "
-          f"largest differences {json.dumps(worst)}")
-    return worst
+    mods = kernel_modules()
+    reseeds = {"rwkv": reseed_rwkv, "jamba": reseed_jamba}
+    out, launches = {}, {}
+    for arch, variant, optimizers, (atol, rtol), reseed in TRAIN_CROSS_CASES:
+        tag = f"[train-cross] {arch} {variant}"
+        cfg = get_config(arch, variant).copy(param_dtype="float32", compute_dtype="float32")
+        params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32,
+                             "cpu")
+        if reseed is not None:
+            reseeds[reseed](params, torch.Generator().manual_seed(4))
+        data = SyntheticTokens(cfg, 4, 64, seed=1)
+        worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0, "opt": 0.0}
+        for optimizer in optimizers:
+            for k in (1, 2):
+                tcfg = TrainConfig(optimizer=optimizer, learning_rate=1e-3, warmup_steps=1,
+                                   total_steps=10, microbatches=k)
+                states = {dev: init_state(map_leaves(lambda p: p.to(dev, copy=True), params), tcfg)
+                          for dev in ("cpu", "cuda")}
+                steps = {dev: make_train_step(cfg, tcfg) for dev in states}
+                for mod in mods.values():
+                    mod.launches = 0
+                for i in range(3):
+                    host = data.batch_at(i)
+                    if k > 1:
+                        host = split_microbatches(host, k)
+                    metrics = {}
+                    for dev in states:
+                        states[dev], metrics[dev] = steps[dev](states[dev], to_device(host, dev))
+                    for key in metrics["cpu"]:
+                        if key == "lr":
+                            continue
+                        a, b = float(metrics["cuda"][key]), float(metrics["cpu"][key])
+                        err = abs(a - b)
+                        check(err <= atol + rtol * abs(b),
+                              f"{arch} {optimizer} k={k} step {i} {key}: cuda {a} cpu {b}")
+                        if key in worst:
+                            worst[key] = max(worst[key], err)
+                counts = {name: mod.launches for name, mod in mods.items()}
+                # each layer's kernel: forward and remat recomputation, per microbatch
+                want = {name: 3 * k * 2 * n for name, n in layer_kernels(cfg).items()}
+                check(counts == want, f"{arch} {optimizer} k={k}: launches {counts}, want {want}")
+                launches[arch] = {n: launches.get(arch, {}).get(n, 0) + counts[n] for n in mods}
+                for part in ("params", "opt"):
+                    pairs = zip(leaves_with_names(states["cuda"][part]),
+                                leaves_with_names(states["cpu"][part]))
+                    for (name, a), (_, b) in pairs:
+                        a = a.cpu()
+                        err = (a - b).abs().max().item()
+                        check(torch.allclose(a, b, atol=atol, rtol=rtol),
+                              f"{arch} {optimizer} k={k} {name}: cuda vs cpu max_abs_err {err}")
+                        worst[part] = max(worst[part], err)
+                print(f"{tag}: {optimizer}, {k} microbatch(es), 3 steps: loss "
+                      f"{float(metrics['cuda']['loss']):.6f} (cpu "
+                      f"{float(metrics['cpu']['loss']):.6f}); kernel launches on the card "
+                      f"{counts}; worst so far {json.dumps(worst)}")
+        print(f"{tag}: cuda vs cpu within atol {atol}, rtol {rtol}: largest differences "
+              f"{json.dumps(worst)}")
+        out[arch] = worst
+    return launches, out
 
 
 def reference_modules(modules) -> list[str]:
@@ -1595,12 +1960,19 @@ def main() -> int:
     rwkv_counts, rwkv_stats = phase_slice("rwkv6-7b", "full", PRIME_PROMPT_LENS, {"rwkv6_wkv": 32})
     jamba_counts, jamba_stats = phase_slice("jamba-1.5-large-398b", "no-moe", PRIME_PROMPT_LENS,
                                             JAMBA_PER_PREFILL)
+    mixtral_counts, mixtral_stats = phase_slice("mixtral-8x7b", "half-depth", PROMPT_LENS,
+                                                MIXTRAL_PER_PREFILL, after=mixtral_checks)
+    swa_counts = mixtral_stats.pop("launches")
     phase_cross_device("granite-3-8b", "smoke", 72)
     phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
     phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
+    phase_cross_device("mixtral-8x7b", "smoke", 72)
+    phase_cross_device("jamba-1.5-large-398b", "smoke", 67, reseed_jamba)
+    phase_cross_device("starcoder2-15b", "smoke", 72)
+    phase_cross_device("qwen2.5-14b", "smoke", 72)
     train_counts, train_stats = phase_train_full(grad_stats)
     continuum_counts = phase_continuum_process()
-    cross_worst = phase_train_cross()
+    cross_counts, cross_worst = phase_train_cross()
     broker = Broker()
     try:
         broker_stats = phase_broker(broker)
@@ -1617,8 +1989,12 @@ def main() -> int:
              "stablelm-3b continuum": continuum_counts,
              "stablelm-3b executors-continuum": executor_counts,
              "stablelm-3b executors-serve-full": serve_exec_counts}
+    earlier = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
+    paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b swa": swa_counts,
+                  **{f"{arch} train-cross": c for arch, c in cross_counts.items()}})
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
-    print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)}")
+    print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)} "
+          f"({json.dumps(earlier)} on the paths before mixtral and train-cross)")
     flash_row, flash_serving = phase_timing(worst_err, launches["flash_attention"])
     kernels = [flash_row]
     wkv_row, prime = phase_wkv_timing(worst_wkv, launches["rwkv6_wkv"])
@@ -1630,10 +2006,12 @@ def main() -> int:
           f"{json.dumps(prime)}")
     print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "
           f"serving shapes {json.dumps(serving)}")
+    print(f"[done] serving mixtral-8x7b half-depth {json.dumps(mixtral_stats)}")
     print(f"[done] training stablelm-3b {json.dumps(train_stats)}; flash attention at the training "
           f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
-          f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's; train cuda "
-          f"vs cpu {json.dumps(cross_worst)}")
+          f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's "
+          f"(WkvFn {grad_stats['wkv_grad_err']:.3e}, MambaScanFn "
+          f"{grad_stats['mamba_grad_err']:.3e}); train cuda vs cpu {json.dumps(cross_worst)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
     print(f"{card}")

@@ -1,25 +1,30 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 Only the architectures whose modules are ported are registered; any other
-id raises ``KeyError`` naming it as not yet ported. jamba is registered
-for its variants without experts: MoE is not ported, so its published
-``full()`` config raises ``NotImplementedError`` when a model is laid out.
+id raises ``KeyError`` naming it as not yet ported. An arch module may add
+variants of its own in ``VARIANTS``: jamba's without experts, mixtral's
+``half-depth`` that fits one card.
 """
 
 from __future__ import annotations
 
-from . import granite_3_8b, jamba_1_5_large_398b, rwkv6_7b, stablelm_3b
+from . import (
+    granite_3_8b, jamba_1_5_large_398b, mixtral_8x7b, qwen2_5_14b, rwkv6_7b, stablelm_3b,
+    starcoder2_15b,
+)
 from .base import ModelConfig, TrainConfig
 
 ARCHS: dict[str, object] = {
-    m.ARCH_ID: m for m in (stablelm_3b, granite_3_8b, rwkv6_7b, jamba_1_5_large_398b)
+    m.ARCH_ID: m for m in (starcoder2_15b, qwen2_5_14b, stablelm_3b, granite_3_8b,
+                           jamba_1_5_large_398b, rwkv6_7b, mixtral_8x7b)
 }
 ARCH_IDS: list[str] = list(ARCHS.keys())
 
 
 def get_config(arch: str, variant: str = "full") -> ModelConfig:
     """variant: 'full' (published widths), 'smoke' (reduced, CPU-runnable)
-    or one of the arch module's ``VARIANTS`` (e.g. jamba's ``no-moe``)."""
+    or one of the arch module's ``VARIANTS`` (e.g. jamba's ``no-moe``,
+    mixtral's ``half-depth``)."""
     if arch not in ARCHS:
         raise KeyError(f"arch {arch!r} is not yet ported to repro_torch; ported: {ARCH_IDS}")
     mod = ARCHS[arch]

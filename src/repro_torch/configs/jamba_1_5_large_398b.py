@@ -6,9 +6,12 @@ Layout: period-8 groups (attention at index 4, Mamba elsewhere), MoE
 replaces the MLP on every other layer — 9 scanned groups of 8 layers.
 Jamba uses no explicit positional encoding (the Mamba layers carry it).
 
-``full()`` and ``smoke()`` are copies of the reference's. MoE is not
-ported yet, so the port serves the two variants without experts in
-``VARIANTS``: every MLP is then a dense SwiGLU of d_ff 24576, as the
+``full()`` and ``smoke()`` are copies of the reference's and lay out
+with experts on blocks 1, 3, 5 and 7 of each group. With experts one
+group of 8 layers holds 45.2 B params, so the published widths do not
+fit one 80 GB card even at one group; with experts the port runs on the
+card at smoke size only. ``VARIANTS`` adds the two variants without
+experts: every MLP is then a dense SwiGLU of d_ff 24576, as the
 reference's own layout makes it with ``MoEConfig()``. ``no-moe`` keeps
 every published width and cuts depth to 2 groups (16 layers: 14 Mamba, 2
 attention; 16,924,327,360 params, 33.85 GB in bf16), which fits one 80 GB

@@ -18,6 +18,10 @@ from ``h0``, each returning ``(y, h_final)`` in float32:
   numerics, chunk by chunk: ``da = exp(dt·a)``, ``dbx = dt·x·B`` as
   (B, C, DI, N), the in-chunk scan, ``h_all = acc_a·h + acc_b``,
   ``y = Σₙ h_all·C`` and the carried state, all in float32.
+* ``MambaScanFn`` is the kernel on the training path, an
+  ``autograd.Function``: its forward launches the kernel, its backward
+  recomputes through the plain twin (the reference has no backward
+  kernel either).
 """
 
 from __future__ import annotations
@@ -131,17 +135,12 @@ def mamba_scan_cuda(
     x: torch.Tensor,  # (B, T, DI) float32 or bfloat16
     h0: torch.Tensor,  # (B, DI, N) float32
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raise on anything it does not take, and when
-    grad mode is on and an input requires grad: the kernel has no backward."""
+    """Launch the CUDA kernel; raise on anything it does not take. Its
+    outputs carry no gradient: under grad, ``MambaScanFn`` launches it."""
     global launches
     args = (dt, bmat, cmat, a, x, h0)
     if not (dt.is_cuda and all(v.device == dt.device for v in args)):
         raise ValueError("mamba_scan_cuda needs dt, B, C, A, x, h0 on one CUDA device")
-    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
-        raise RuntimeError(
-            "mamba_scan_cuda has no backward yet (ROADMAP queue B: B3's autograd wrapper); it "
-            "would return tensors without a gradient. Run it under torch.no_grad() or "
-            "inference_mode, or train on the CPU")
     if any(v.dtype != torch.float32 for v in (dt, bmat, cmat, a, h0)) or x.dtype not in X_DTYPES:
         raise TypeError(f"dtypes {[v.dtype for v in args]}: the kernel takes float32, and x "
                         f"in float32 or bfloat16")
@@ -169,3 +168,33 @@ def mamba_scan_cuda(
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return y, h_out
+
+
+class MambaScanFn(torch.autograd.Function):
+    """The kernel with a gradient: ``ops.mamba_chunk_scan`` takes this on a
+    CUDA tensor whenever grad mode is on and an input requires grad.
+
+    ``forward`` launches the kernel (``mamba_scan_cuda``, one launch
+    counted; x in float32 or bfloat16, cast on load) and saves its inputs.
+    ``backward`` recomputes through ``mamba_scan_plain`` at the model's
+    ``chunk`` and ``d_block`` on detached inputs, with ``x.float()`` as the
+    twin takes it, under ``torch.enable_grad()``, and returns
+    ``torch.autograd.grad`` of ``(y, h_final)``; dx comes back in x's
+    dtype through the cast.
+    """
+
+    @staticmethod
+    def forward(ctx, dt, bmat, cmat, a, x, h0, chunk: int, d_block: int):
+        y, h = mamba_scan_cuda(dt, bmat, cmat, a, x, h0)
+        ctx.save_for_backward(dt, bmat, cmat, a, x, h0)
+        ctx.tiles = {"chunk": chunk, "d_block": d_block}
+        return y, h
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_h):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        dt, bmat, cmat, a, x, h0 = inputs
+        with torch.enable_grad():
+            y, h = mamba_scan_plain(dt, bmat, cmat, a, x.float(), h0, **ctx.tiles)
+            grads = torch.autograd.grad((y, h), inputs, (grad_y, grad_h))
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None, None)

@@ -15,7 +15,15 @@ on the (B·H, T, K) layout, each returning ``(out, s_final)``:
   numerics, chunk by chunk: the in-chunk ``cum`` and ``cum_prev``, the
   pairwise decay ``exp(cum_prev[t] - cum[s])`` for s < t, the ``u`` bonus
   on the diagonal, the cross-chunk term ``r·exp(cum_prev)·S`` and the
-  state update, all in float32.
+  state update, all in float32. The pairwise decay is
+  ``exp(where(s < t, diff, -inf))``, not the reference's
+  ``where(s < t, exp(diff), 0)``: the same bits forward, but the masked
+  entries' gradient stays 0 where ``exp(diff)`` overflows at strong decay
+  (the reference's gradient there is 0·inf = NaN).
+* ``WkvFn`` is the kernel on the training path, an
+  ``autograd.Function``: its forward launches the kernel, its backward
+  recomputes through the plain twin (the reference has no backward
+  kernel either).
 """
 
 from __future__ import annotations
@@ -61,7 +69,7 @@ def rwkv6_plain(
         cum = torch.cumsum(lw, dim=1)  # (BH, C, K)
         cum_prev = cum - lw
         diff = cum_prev[:, :, None, :] - cum[:, None, :, :]  # (BH, C, C, K), <= 0 for s < t
-        ratio = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        ratio = torch.exp(torch.where(tri[None, :, :, None], diff, -torch.inf))
         scores = torch.einsum("btk,bsk,btsk->bts", rc, kc, ratio)
         diag = (rc * uf * kc).sum(dim=-1)  # (BH, C) bonus
         out = torch.bmm(scores, vc) + diag[..., None] * vc
@@ -105,17 +113,12 @@ def rwkv6_cuda(
     u: torch.Tensor,  # (BH, 1, K)
     s0: torch.Tensor,  # (BH, K, V)
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; raise on anything it does not take, and when
-    grad mode is on and an input requires grad: the kernel has no backward."""
+    """Launch the CUDA kernel; raise on anything it does not take. Its
+    outputs carry no gradient: under grad, ``WkvFn`` launches it."""
     global launches
     args = (r, k, v, logw, u, s0)
     if not (r.is_cuda and all(x.device == r.device for x in args)):
         raise ValueError("rwkv6_cuda needs r, k, v, logw, u, s0 on one CUDA device")
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        raise RuntimeError(
-            "rwkv6_cuda has no backward yet (ROADMAP queue B: B2's autograd wrapper, with C13); "
-            "it would return a tensor without a gradient. Run it under torch.no_grad() or "
-            "inference_mode, or train on the CPU")
     if any(x.dtype != torch.float32 for x in args):
         raise TypeError(f"dtypes {[x.dtype for x in args]}: the kernel takes float32 only")
     if r.ndim != 3:
@@ -141,3 +144,33 @@ def rwkv6_cuda(
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")
     launches += 1
     return out, s_final
+
+
+class WkvFn(torch.autograd.Function):
+    """The kernel with a gradient: ``ops.rwkv6_chunked`` takes this on a
+    CUDA tensor whenever grad mode is on and an input requires grad.
+
+    ``forward`` launches the kernel (``rwkv6_cuda``, one launch counted)
+    and saves its inputs. ``backward`` recomputes through ``rwkv6_plain``
+    at the model's ``chunk`` on detached inputs under
+    ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of
+    ``(out, s_final)`` against both incoming gradients (training reads no
+    ``s_final``, so its gradient arrives as zeros). The kernel tiles time
+    with its own chunk, so the gradients are the twin's function's, equal
+    to the kernel's forward up to rounding.
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, logw, u, s0, chunk: int):
+        out, s_final = rwkv6_cuda(r, k, v, logw, u, s0)
+        ctx.save_for_backward(r, k, v, logw, u, s0)
+        ctx.chunk = chunk
+        return out, s_final
+
+    @staticmethod
+    def backward(ctx, grad_out, grad_s):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out, s_final = rwkv6_plain(*inputs, chunk=ctx.chunk)
+            grads = torch.autograd.grad((out, s_final), inputs, (grad_out, grad_s))
+        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)

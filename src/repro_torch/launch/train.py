@@ -23,7 +23,9 @@ from ..runtime.train_loop import evaluate, train
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--variant", default="smoke", choices=["smoke", "full"],
+                    help="smoke | full, the reference launcher's choices (an arch's own "
+                         "variants, e.g. mixtral's half-depth, are served by launch.serve)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq-len", type=int, default=64)

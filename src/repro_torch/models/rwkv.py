@@ -89,7 +89,10 @@ def _wkv_chunked(
         cum = torch.cumsum(lw, dim=1)
         cum_prev = cum - lw  # cum up to t-1 (exclusive)
         diff = cum_prev[:, :, None] - cum[:, None, :]  # (B, c, c, H, K), <= 0 for s < t
-        ratio = torch.where(tri, torch.exp(diff), 0.0)
+        # exp of the masked difference: where(tri, exp(diff), 0) gives the
+        # same bits, but its gradient is 0·inf = NaN once exp(diff) overflows
+        # above the diagonal at strong decay (ROADMAP C13)
+        ratio = torch.exp(torch.where(tri, diff, -torch.inf))
         scores = torch.einsum("bthk,bshk,btshk->bths", rk, kk, ratio)
         diag = torch.einsum("bthk,hk,bthk->bth", rk, u, kk)  # the bonus
         out = torch.einsum("bths,bshv->bthv", scores, vk)

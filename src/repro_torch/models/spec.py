@@ -1,9 +1,10 @@
-"""Parameter specs and initialisation (dense, RWKV-6 and jamba branches).
+"""Parameter specs and initialisation (dense, MoE, RWKV-6 and jamba branches).
 
 Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
 (``models/sharding.py``) and of the spec functions of ``models/model.py``,
-``models/attention.py``, ``models/rwkv.py`` and ``models/ssm.py``. The shape tree equals the
-reference's ``model_spec(cfg)`` for the ported architectures.
+``models/attention.py``, ``models/moe.py``, ``models/rwkv.py`` and
+``models/ssm.py``. The shape tree equals the reference's
+``model_spec(cfg)`` for the ported architectures.
 """
 
 from __future__ import annotations
@@ -224,8 +225,24 @@ def mamba_spec(cfg: ModelConfig) -> dict:
     }
 
 
+def moe_spec(cfg: ModelConfig) -> dict:
+    d, e, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.expert_d_ff
+    spec = {
+        "router": ParamLeaf((d, e), ("embed", "experts"), scale=0.02),
+        "w_gate": ParamLeaf((e, d, f), ("experts", "expert_embed", "expert_ffn")),
+        "w_up": ParamLeaf((e, d, f), ("experts", "expert_embed", "expert_ffn")),
+        "w_down": ParamLeaf((e, f, d), ("experts", "expert_ffn", "expert_embed")),
+    }
+    if cfg.moe.num_shared_experts > 0:
+        fs = f * cfg.moe.num_shared_experts
+        spec["shared_gate"] = ParamLeaf((d, fs), ("embed", "ffn"))
+        spec["shared_up"] = ParamLeaf((d, fs), ("embed", "ffn"))
+        spec["shared_down"] = ParamLeaf((fs, d), ("ffn", "embed"))
+    return spec
+
+
 _MIXER_SPECS = {"attn": attn_spec, "rwkv": rwkv_time_mix_spec, "mamba": mamba_spec}
-_MLP_SPECS = {"dense": _mlp_spec, "rwkv_cm": rwkv_channel_mix_spec}
+_MLP_SPECS = {"dense": _mlp_spec, "moe": moe_spec, "rwkv_cm": rwkv_channel_mix_spec}
 
 
 def _block_spec(bdef: BlockDef, cfg: ModelConfig) -> dict:

@@ -4,8 +4,9 @@ Port of the reference's ``train/train_step.py``. The step is a function
 (state, batch) -> (state, metrics), with the reference's state
 ``{"step": int32 0-d, "params": ..., "opt": ...}``. With ``microbatches``
 k > 1 the batch arrives pre-split as (k, B/k, ...) and float32 gradients
-accumulate as g/k in microbatch order. The MoE auxiliary losses (ROADMAP
-A10) and multi-token prediction (A13) are not ported and raise.
+accumulate as g/k in microbatch order. With experts the loss adds the
+weighted load-balance and router z losses, reported as ``moe_lb`` and
+``moe_z``. Multi-token prediction (ROADMAP A13) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..models.model import forward
+from ..models.moe import moe_aux_loss
 from ..tree import leaves, map_leaves, rebuild
 from .optimizer import clip_by_global_norm, global_norm, lr_schedule, opt_init, opt_update
 
@@ -35,9 +37,6 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.moe.num_experts > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE auxiliary losses are not ported to repro_torch (ROADMAP A10)")
     if cfg.mtp_depth > 0:
         raise NotImplementedError(
             f"{cfg.name}: multi-token prediction is not ported to repro_torch (ROADMAP A13)")
@@ -46,9 +45,16 @@ def _check_ported(cfg: ModelConfig) -> None:
 def loss_fn(params: Any, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
     _check_ported(cfg)
     tokens = batch["tokens"]
-    logits, _ = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch)
     ce, _ = cross_entropy(logits[:, :-1], tokens[:, 1:])
-    return ce, {"ce": ce, "loss": ce}
+    loss = ce
+    metrics = {"ce": ce}
+    if cfg.moe.num_experts > 0:
+        loss = loss + moe_aux_loss(aux, cfg)
+        metrics["moe_lb"] = aux["lb_loss"]
+        metrics["moe_z"] = aux["z_loss"]
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def init_state(params: Any, tcfg: TrainConfig) -> dict:

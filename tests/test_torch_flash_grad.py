@@ -7,10 +7,11 @@ that match ``jax.grad`` through the reference's ``blockwise_attention``
 ``blockwise_attention`` (``use_pallas=False``), for causal, GQA, sliding
 window, ragged S and bidirectional attention. Remat ``"full"`` and
 ``"none"`` give the same loss and gradients, and ``"full"`` runs each
-group's forward again in the backward pass. On a card (``-m cuda``),
-``FlashAttentionFn`` launches the kernel once per call and its gradients
-match autograd through the plain twin; the WKV and scan kernels refuse
-to run under grad (ROADMAP C12)."""
+group's forward again in the backward pass; ``"dots"`` gives the same
+and matches ``jax.grad`` through the reference under its ``"dots"``
+policy. On a card (``-m cuda``), ``FlashAttentionFn`` launches the kernel
+once per call and its gradients match autograd through the plain twin
+(the WKV and scan kernels' Functions: ``tests/test_torch_scan_grad.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -21,13 +22,11 @@ import torch
 from repro.models import attention as ref_attn
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.kernels import flash_attention as fa
-from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
-from repro_torch.kernels import rwkv6 as wkv
 from repro_torch.models import attention as attn
 from repro_torch.models import init_params, model_spec
 from repro_torch.train.train_step import loss_fn
-from repro_torch.tree import leaves_with_names
+from repro_torch.tree import leaves_with_names, rebuild
 
 ATOL, RTOL = 2e-5, 1e-4
 
@@ -113,18 +112,101 @@ def test_remat_full_and_none_give_the_same_loss_and_gradients(use_pallas, monkey
 
 
 def test_remat_dots_raises_under_grad_and_serving_is_unchanged():
+    """Remat ``"dots"`` raised under grad before it was ported; now it runs,
+    and only an unknown policy raises. Serving never recomputes, whatever
+    the policy."""
     cfg = get_config("stablelm-3b", "smoke").copy(param_dtype="float32", compute_dtype="float32",
                                                   remat="dots")
     params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
     tokens = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_fn(params, cfg, TrainConfig(), tokens)
+    loss, _ = loss_fn(params, cfg, TrainConfig(), tokens)
+    assert torch.isfinite(loss)
+    with pytest.raises(ValueError, match="unknown remat"):
+        loss_fn(params, cfg.copy(remat="offload"), TrainConfig(), tokens)
     from repro_torch.models import forward
 
     with torch.inference_mode():  # serving never recomputes, whatever the policy
         a, _ = forward(params, cfg, tokens)
         b, _ = forward(params, cfg.copy(remat="none"), tokens)
     assert torch.equal(a, b)
+
+
+def _ref_model(arch):
+    """The reference's smoke config and params (float32) and the port's."""
+    from repro import models as R
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.interop import params_from_reference
+
+    rcfg = ref_get_config(arch, "smoke").copy(param_dtype="float32", compute_dtype="float32")
+    rparams = R.init_params(jax.random.key(0), R.model_spec(rcfg), jnp.float32)
+    cfg = get_config(arch, "smoke").copy(param_dtype="float32", compute_dtype="float32")
+    return rcfg, rparams, cfg, params_from_reference(jax.tree.map(np.asarray, rparams))
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "mixtral-8x7b"])
+def test_remat_dots_matches_full_none_and_jax_grad(arch, monkeypatch):
+    """``"dots"`` (save the ``mm`` outputs, recompute the rest) gives the
+    loss and gradients of ``"full"`` and ``"none"`` at atol 1e-6, runs
+    every attention layer again in the backward pass, recomputes no
+    ``mm`` there (as many as ``"none"`` runs) but every ``bmm`` (as many as
+    ``"full"``), and matches ``jax.grad`` through the reference's loss
+    under its ``"dots"`` policy (atol 1e-5 / rtol 1e-4, the train step's
+    bar)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountProducts(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.counts = {"mm": 0, "bmm": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in self.counts:
+                self.counts[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    from repro.configs import TrainConfig as RefTrainConfig
+    from repro.train.train_step import loss_fn as ref_loss_fn
+
+    rcfg, rparams, cfg, params = _ref_model(arch)
+    tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    calls = []
+    real = attn.attn_fwd
+
+    def counting(*a, **kw):
+        calls.append(torch.is_grad_enabled())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(attn, "attn_fwd", counting)
+    out = {}
+    for remat in ("dots", "full", "none"):
+        calls.clear()
+        live = {n: p.detach().clone().requires_grad_() for n, p in leaves_with_names(params)}
+        tree = rebuild(params, list(live.values()))
+        loss, metrics = loss_fn(tree, cfg.copy(remat=remat), TrainConfig(),
+                                {"tokens": torch.from_numpy(tokens)})
+        with CountProducts() as backward_products:
+            grads = torch.autograd.grad(loss, list(live.values()))
+        out[remat] = (loss.detach(), dict(zip(live, grads)), len(calls), backward_products.counts)
+    layers = cfg.num_layers
+    assert [out[r][2] for r in ("dots", "full", "none")] == [2 * layers, 2 * layers, layers]
+    mm, bmm = ({r: out[r][3][k] for r in out} for k in ("mm", "bmm"))
+    assert mm["dots"] == mm["none"] < mm["full"] and bmm["dots"] == bmm["full"] > bmm["none"]
+    for remat in ("full", "none"):
+        torch.testing.assert_close(out["dots"][0], out[remat][0], atol=1e-6, rtol=0)
+        for name, g in out["dots"][1].items():
+            torch.testing.assert_close(g, out[remat][1][name], atol=1e-6, rtol=0, msg=name)
+
+    def ref_loss(p):
+        return ref_loss_fn(p, rcfg.copy(remat="dots"), RefTrainConfig(),
+                           {"tokens": jnp.asarray(tokens)})[0]
+
+    rloss, rgrads = jax.value_and_grad(ref_loss)(rparams)
+    assert float(out["dots"][0]) == pytest.approx(float(rloss), abs=1e-5)
+    for (name, want), got in zip(jax.tree_util.tree_flatten_with_path(rgrads)[0],
+                                 out["dots"][1].values()):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-4,
+                                   err_msg=jax.tree_util.keystr(name))
 
 
 # ---------------------------------------------------------------------------
@@ -161,25 +243,3 @@ def test_cuda_flash_attention_fn_gradients_match_the_plain_twin(b, s, h, kv, d, 
     for name, g, r in zip("qkv", got, want):
         assert g.dtype == dtype
         torch.testing.assert_close(g.float().cpu(), r.float().cpu(), **tol, msg=f"d{name}")
-
-
-@pytest.mark.cuda
-def test_cuda_wkv_and_scan_kernels_refuse_grad():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    r = torch.randn(2, 16, 8, device="cuda", requires_grad=True)
-    args = (r, torch.randn(2, 16, 8, device="cuda"), torch.randn(2, 16, 8, device="cuda"),
-            -torch.rand(2, 16, 8, device="cuda"), torch.zeros(2, 1, 8, device="cuda"),
-            torch.zeros(2, 8, 8, device="cuda"))
-    with pytest.raises(RuntimeError, match="queue B"):
-        wkv.rwkv6_cuda(*args)
-    with torch.no_grad():
-        wkv.rwkv6_cuda(*args)
-    dt = torch.rand(1, 16, 8, device="cuda", requires_grad=True)
-    margs = (dt, torch.randn(1, 16, 4, device="cuda"), torch.randn(1, 16, 4, device="cuda"),
-             -torch.rand(8, 4, device="cuda"), torch.randn(1, 16, 8, device="cuda"),
-             torch.zeros(1, 8, 4, device="cuda"))
-    with pytest.raises(RuntimeError, match="queue B"):
-        ms.mamba_scan_cuda(*margs)
-    with torch.inference_mode():
-        ms.mamba_scan_cuda(*margs)

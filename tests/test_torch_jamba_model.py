@@ -122,8 +122,13 @@ def test_layout_is_the_references():
 
 @pytest.mark.parametrize("variant", ["full", "smoke"])
 def test_published_config_with_experts_raises(variant):
-    with pytest.raises(NotImplementedError, match="no-moe"):
-        decoder_layout(get_config(ARCH, variant))
+    """The published configs lay out with experts on blocks 1, 3, 5 and 7
+    as the reference's do (they raised before MoE was ported); a variant
+    the arch does not have raises, naming the ones it has."""
+    layout = decoder_layout(get_config(ARCH, variant))
+    ref = R.model.decoder_layout(ref_get_config(ARCH, variant))
+    assert [(b.mixer, b.mlp) for b in layout.group] == [(b.mixer, b.mlp) for b in ref.group]
+    assert [b.mlp for b in layout.group] == ["dense", "moe"] * 4
     with pytest.raises(KeyError, match="smoke-no-moe"):
         get_config(ARCH, "moe")
 
@@ -357,7 +362,7 @@ def test_pad_cache_leaves_mamba_state_and_pads_attention_as_the_reference(ref_mo
 
 
 @pytest.mark.parametrize("bdef,name", [(BlockDef("xattn", "dense"), "xattn"),
-                                       (BlockDef("mamba", "moe"), "moe")])
+                                       (BlockDef("mla", "dense"), "mla")])
 def test_unknown_block_kinds_raise_in_forward_and_decode(bdef, name, ref_model):
     """A mixer or MLP that is not ported raises instead of running another
     block's code."""

@@ -1,6 +1,8 @@
-"""Port parity at model level: specs, weight interop, forward logits and
-the prefill+decode == forward serving contract, against the reference on
-the same weights (built by ``repro.models.init_params``, moved through
+"""Port parity at model level for the dense branch (stablelm, granite,
+starcoder2 with its QKV biases and tanh GELU, qwen2.5 with head dim 16 and
+one kv head at smoke size): specs, weight interop, forward logits and the
+prefill+decode == forward serving contract, against the reference on the
+same weights (built by ``repro.models.init_params``, moved through
 numpy)."""
 
 import jax
@@ -20,7 +22,7 @@ from repro_torch.models import (
     count_params, decode_step, forward, init_params, model_spec, prefill, spec_shapes,
 )
 
-ARCHS = ["stablelm-3b", "granite-3-8b"]
+ARCHS = ["stablelm-3b", "granite-3-8b", "starcoder2-15b", "qwen2.5-14b"]
 B, S = 2, 16
 
 
@@ -135,7 +137,7 @@ def test_sliding_window_ring_buffer_matches_reference(ref_models):
 
 def test_unported_arch_and_missing_card_raise():
     with pytest.raises(KeyError, match="not yet ported"):
-        get_config("mixtral-8x7b")
+        get_config("deepseek-v3-671b")
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):

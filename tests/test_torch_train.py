@@ -238,11 +238,21 @@ def test_loss_decreases_over_steps(smoke):
 
 
 def test_moe_and_mtp_raise_with_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="A10"):
-        loss_fn({}, ModelConfig(moe=ModelConfig().moe.__class__(num_experts=4)), TrainConfig(),
-                {"tokens": torch.zeros((1, 4), dtype=torch.int32)})
+    """Multi-token prediction (A13) still raises. MoE (A10) raised before it
+    was ported; now an MoE config's loss adds the weighted load-balance and
+    z losses, reported as ``moe_lb`` and ``moe_z``."""
     with pytest.raises(NotImplementedError, match="A13"):
         make_train_step(ModelConfig(mtp_depth=1), TrainConfig())
+    with pytest.raises(NotImplementedError, match="A13"):
+        loss_fn({}, ModelConfig(mtp_depth=1), TrainConfig(), {})
+    cfg = _f32(get_config("mixtral-8x7b", "smoke"))
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    tokens = torch.from_numpy(SyntheticTokens(cfg, 2, 16, seed=1).batch_at(0)["tokens"])
+    loss, metrics = loss_fn(params, cfg, TrainConfig(), {"tokens": tokens})
+    assert sorted(metrics) == ["ce", "loss", "moe_lb", "moe_z"]
+    want = metrics["ce"] + 0.01 * metrics["moe_lb"] + 1e-3 * metrics["moe_z"]
+    assert float(metrics["moe_lb"]) > 0 and float(metrics["moe_z"]) > 0
+    assert float(loss) == pytest.approx(float(want), rel=1e-6)
 
 
 def test_microbatched_step_refuses_an_unsplit_batch(smoke):
