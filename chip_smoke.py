@@ -17,23 +17,31 @@ Phases, each of which exits non-zero when it fails:
      twin without the window and with a shorter one must fail the case's
      bar;
   4. the slices: stablelm-3b and rwkv6-7b at full width and depth,
-     jamba-1.5-large without experts at full width and 16 layers, and
+     jamba-1.5-large without experts at full width and 16 layers,
      mixtral-8x7b at every published width and 16 of 32 layers
-     (``half-depth``), each in bf16 with seeded random weights, answer 8
+     (``half-depth``), and deepseek-v3-671b at every published width with
+     its 3 dense-prefix and 2 of its 58 MoE layers (``two-moe``), each in
+     bf16 with seeded random weights, answer 8
      requests in batches of 4 through the batch handler; with every launch
      count set to 0 just before, each kernel must launch exactly as often
      per prefill as the slice's layout says (and a kernel it does not name,
-     never), and greedy output must repeat exactly. For mixtral the served
-     tokens must also equal direct ``generate``, the share of dropped
-     (token, choice) pairs is printed for a prefill (also split between
-     the left padding and the prompts' own tokens) and a decode step, and
-     ``[mixtral-swa]`` holds 16 decode steps past the 4,096-token window
-     (B=1, prompt 4,352) to the forward at the bf16 bar, with B1 launched
-     once per layer in the forward and in the prefill, while the forward
-     without the window must fall outside that bar;
-  5. granite, rwkv6, jamba (with and without experts), mixtral, starcoder2
-     and qwen2.5 (smoke, f32) on the card (kernels) against the CPU (plain
-     twins) on the same weights: logits and greedy tokens;
+     never), and greedy output must repeat exactly. For mixtral and
+     deepseek the served tokens must also equal direct ``generate``, B1
+     must launch once per attention layer in a prefill and never in a
+     decode step, and the share of dropped (token, choice) pairs is printed
+     for a prefill (also split between the left padding and the prompts'
+     own tokens) and a decode step; ``[mixtral-swa]`` holds 16 decode steps
+     past the 4,096-token window (B=1, prompt 4,352) to the forward at the
+     bf16 bar, with B1 launched once per layer in the forward and in the
+     prefill, while the forward without the window must fall outside that
+     bar. For deepseek the decode cache's bytes per token and layer are
+     held to MLA's 576 values, and ``[mla-absorb]`` holds 16 absorbed
+     decode steps of one full-width MLA layer (B=4, a 300-token prefill)
+     to the expanded ``mla_fwd`` at ``MLA_ABSORB_ATOL``/``RTOL``, while the
+     forward one position off must fall outside that bar;
+  5. granite, rwkv6, jamba (with and without experts), mixtral, starcoder2,
+     qwen2.5 and deepseek (smoke, f32) on the card (kernels) against the
+     CPU (plain twins) on the same weights: logits and greedy tokens;
   6. ``[grad]``: flash attention under grad (``FlashAttentionFn``): one
      kernel launch per forward, the kernel's own output, and dq/dk/dv
      against autograd through the plain twin on the card; the same for
@@ -57,7 +65,8 @@ Phases, each of which exits non-zero when it fails:
      and greedy tokens equal those of the in-memory params;
   9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
      the same parameters and batches, 1 and 2 microbatches, for stablelm
-     (AdamW and Adafactor), mixtral, rwkv6 and jamba with experts (AdamW):
+     (AdamW and Adafactor), mixtral, rwkv6, jamba with experts and deepseek
+     (MLA, the dense prefix and MTP, with ``mtp_ce``) (AdamW):
      loss, grad norm and parameters at each case's bar in
      ``TRAIN_CROSS_CASES``, and exact launch counts on the card;
  10. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
@@ -81,7 +90,8 @@ Phases, each of which exits non-zero when it fails:
  13. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
-     mixtral's window of 4,096 over 4,352 tokens; the Mamba scan also
+     mixtral's window of 4,096 over 4,352 tokens and at MLA's prefill,
+     head dim 192 with V padded from 128; the Mamba scan also
      beside the least time of its exponentials on the special-function
      unit).
 The last line is the JSON result; the line before it lists the kernels,
@@ -114,6 +124,11 @@ PEAK_BYTES_S = 3.35e12  # H100 SXM HBM3
 # relative (1.6e-2) holds them; phase_kernel_cases shows that a twin
 # without the window, or with one 128-key tile less, fails it.
 MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL = 4e-3, 1.6e-2
+# MLA at full width (deepseek-v3): q and k of head dim qk_nope + qk_rope =
+# 128 + 64, V padded from 128 to that dim, 128 heads, MHA. At S = 200-300 a
+# row averages up to 300 keys, so outputs fall to about 0.06 and B1 is held
+# there at the tighter bar of mixtral's shapes.
+MLA_HEAD_DIM, MLA_V_DIM, MLA_HEADS = 192, 128, 128
 # (B, S, H, KV, D, window, plain-twin kv block, dtype, atol, rtol, label)
 FLASH_CASES = [
     (1, 128, 4, 4, 32, 0, 64, torch.float32, 2e-5, 1e-4, "MHA"),
@@ -148,6 +163,16 @@ FLASH_CASES = [
      "mixtral serving S=300"),
     (1, 4352, 32, 8, 128, 4096, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
      "mixtral window 4096, S=4352"),
+    # deepseek-v3 two-moe: MLA's serving shapes at D = 192, a ragged S, the
+    # f32 scalar kernel at D = 192, and the smoke config's D = 24
+    (4, 300, 128, 128, 192, 0, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "MLA serving S=300, D=192"),
+    (4, 200, 128, 128, 192, 0, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "MLA serving S=200, D=192"),
+    (1, 77, 128, 128, 192, 0, 128, torch.bfloat16, 3e-2, 3e-2, "MLA D=192 ragged S=77"),
+    (2, 160, 128, 128, 192, 0, 128, torch.float32, 2e-5, 1e-4, "MLA D=192 f32, S=160"),
+    (2, 72, 4, 4, 24, 0, 16, torch.float32, 2e-5, 1e-4, "deepseek smoke D=24 f32"),
+    (2, 72, 4, 4, 24, 0, 16, torch.bfloat16, 3e-2, 3e-2, "deepseek smoke D=24 bf16"),
 ]
 # (S, D, dtype, atol, rtol): bidirectional, ragged S, GQA group 2
 BIDIR_CASES = [
@@ -238,18 +263,31 @@ CONTINUUM_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
 # [train-cross]: cuda against cpu after 3 smoke f32 steps; the largest
 # differences measured on an H100 were 1.9e-6 (grad norm) and 3.2e-7 (params)
 TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL = 1e-5, 1e-5
-# (arch, variant, optimizers, (atol, rtol), reseed name): stablelm and
-# mixtral run only B1 and plain torch, at the stablelm bar; rwkv6 (B2) and
+# (arch, variant, optimizers, (atol, rtol), reseed name): stablelm,
+# mixtral and deepseek run only B1 and plain torch, at the stablelm bar; rwkv6 (B2) and
 # jamba with experts (B3, B1) at the WKV and scan kernels' f32 bar
 TRAIN_CROSS_CASES = [
     ("stablelm-3b", "smoke", ("adamw", "adafactor"), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
     ("mixtral-8x7b", "smoke", ("adamw",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
     ("rwkv6-7b", "smoke", ("adamw",), (WKV_ATOL, WKV_RTOL), "rwkv"),
     ("jamba-1.5-large-398b", "smoke", ("adamw",), (MAMBA_ATOL, MAMBA_RTOL), "jamba"),
+    ("deepseek-v3-671b", "smoke", ("adamw",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
 ]
 # mixtral half-depth: 16 layers of [attention (window 4096) + 8 experts]
 MIXTRAL_PER_PREFILL = {"flash_attention": 16}
 MIXTRAL_PARAMS = 23_482_470_400
+# deepseek-v3 two-moe: 3 dense-prefix and 2 MoE layers, each MLA (B1 at
+# D = 192); the MTP block runs only in training
+DEEPSEEK_PER_PREFILL = {"flash_attention": 5}
+DEEPSEEK_PARAMS = 26_952_316_928
+# [mla-absorb]: one MLA layer of two-moe, B=4, a 300-token prefill, 16
+# absorbed decode steps held to the expanded forward. Past 300 keys the
+# outputs are at most 0.011 (on an H100): an atol of 1e-3, set from a layer at
+# S=96 on the CPU (outputs up to 0.37), let the forward one position off
+# (6.7e-4 to 8.5e-4 away) pass, so the bar is 1e-4 with two bf16 steps
+# relative; the absorbed decode was 6.1e-5 (one bf16 step) away.
+MLA_ABSORB_ATOL, MLA_ABSORB_RTOL = 1e-4, 1e-2
+MLA_ABSORB_BATCH, MLA_ABSORB_PROMPT = 4, 300
 
 
 def check(ok: bool, msg: str) -> None:
@@ -640,34 +678,48 @@ class MoeDrops:
         return on_real, on_pad
 
 
-def mixtral_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
-    """mixtral half-depth: every published width at 16 layers
-    (``MIXTRAL_PARAMS``); the served tokens equal direct ``generate`` on
-    each batch; the share of dropped (token, choice) pairs at one prefill
-    and one decode step of a batch of 4 (C16: a decode group of 4 tokens
-    has 1 slot per expert); then ``phase_mixtral_swa``."""
+def moe_checks(engine, requests: list[dict], served: list[list[int]], tag: str,
+               n_params_want: int, per_prefill: dict[str, int]) -> dict:
+    """An MoE slice at every published width: ``n_params_want`` params;
+    the served tokens equal direct ``generate`` on each batch; at one
+    prefill and one decode step of a batch of 4, each kernel launches
+    ``per_prefill`` times in the prefill and never in the decode step, and
+    the share of dropped (token, choice) pairs is printed (C16: a decode
+    group of 4 tokens has 1 slot per expert), at the prefill also split
+    between the left padding and the prompts' own tokens; and the decode
+    cache's bytes per token and layer."""
     from repro_torch.models import count_params, decode_step, model_spec, prefill
     from repro_torch.serve.batcher import pad_prompts
+    from repro_torch.tree import leaves
 
     n_params = count_params(model_spec(engine.cfg))
-    check(n_params == MIXTRAL_PARAMS, f"{n_params} params, want {MIXTRAL_PARAMS}")
+    check(n_params == n_params_want, f"{n_params} params, want {n_params_want}")
     for i in range(0, len(requests), 4):
         want = engine.generate(pad_prompts(requests[i : i + 4]), max_new_tokens=NEW_TOKENS).tolist()
         check(served[i : i + 4] == want, f"batch {i // 4}: served tokens differ from generate")
     print(f"{tag} served tokens equal direct generate on each of "
           f"{len(requests) // 4} batches")
     cfg = engine.cfg
+    mods = kernel_modules()
     tokens = torch.as_tensor(pad_prompts(requests[:4]), dtype=torch.long, device="cuda")
     b, s = tokens.shape
     lens = torch.tensor([len(r["prompt"]) for r in requests[:4]], device="cuda")
     real = torch.arange(s, device="cuda")[None, :] >= s - lens[:, None]  # left padding
     e, k, cf = cfg.moe.num_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    counts = {}
     with torch.inference_mode(), MoeDrops() as drops:
+        zero_launches(mods)
         logits, cache = prefill(engine.params, cfg, {"tokens": tokens}, engine.max_len)
+        counts["prefill"] = {name: mod.launches for name, mod in mods.items()}
         at_prefill = drops.take()
         on_real, on_pad = drops.split(real, k)
+        zero_launches(mods)
         decode_step(engine.params, cfg, logits.argmax(-1), cache, s)
+        counts["decode"] = {name: mod.launches for name, mod in mods.items()}
         at_decode = drops.take()
+    want = {"prefill": {n: per_prefill.get(n, 0) for n in mods}, "decode": {n: 0 for n in mods}}
+    print(f"{tag} launches at one prefill and one decode step: {json.dumps(counts)}")
+    check(counts == want, f"launches {counts}, want {want}")
     caps = {n: max(1, int(min(cfg.moe.group_size, n) * k * cf / e)) for n in (b * s, b)}
     shares = {"prefill": at_prefill, "decode": at_decode}
     for name, n in (("prefill", b * s), ("decode", b)):
@@ -682,10 +734,121 @@ def mixtral_checks(engine, requests: list[dict], served: list[list[int]], tag: s
           f"the dropped pairs (mean over layers; min {min(on_pad):.4f}, max {max(on_pad):.4f}); "
           f"the prompts' own tokens drop {sum(on_real) / len(on_real):.4f} of their pairs "
           f"(min {min(on_real):.4f}, max {max(on_real):.4f})")
-    swa_counts, swa = phase_mixtral_swa(engine)
+    # the cache leaves are stacked (groups, B, slots, ...): bytes per slot and layer
+    layer = leaves(cache["layers"])
+    per_token = sum(t[0, 0, 0].numel() * t.element_size() for t in layer)
+    values = sum(t[0, 0, 0].numel() for t in layer)
+    print(f"{tag} decode cache: {values} values, {per_token} bytes per token and layer "
+          f"({', '.join(f'{tuple(t.shape)} {t.dtype}' for t in layer)})")
     return {"dropped_prefill": at_prefill, "dropped_prefill_real": on_real,
             "dropped_prefill_on_pad": on_pad, "pad_tokens": n_pad,
-            "dropped_decode": at_decode, "capacity": caps, "swa": swa, "launches": swa_counts}
+            "dropped_decode": at_decode, "capacity": caps,
+            "cache_values_per_token_layer": values, "cache_bytes_per_token_layer": per_token,
+            "launches": {name: sum(c[name] for c in counts.values()) for name in mods}}
+
+
+def mixtral_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
+    """mixtral half-depth: every published width at 16 layers
+    (``MIXTRAL_PARAMS``), ``moe_checks``, then ``phase_mixtral_swa``."""
+    stats = moe_checks(engine, requests, served, tag, MIXTRAL_PARAMS, MIXTRAL_PER_PREFILL)
+    swa_counts, swa = phase_mixtral_swa(engine)
+    launches = stats.pop("launches")
+    return dict(stats, swa=swa, launches={n: launches[n] + swa_counts[n] for n in launches})
+
+
+def deepseek_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
+    """deepseek-v3 two-moe: every published width at 3 dense-prefix and 2
+    MoE layers (``DEEPSEEK_PARAMS``), ``moe_checks``; the decode cache
+    holds MLA's latent and RoPE key, ``kv_lora_rank + qk_rope_head_dim``
+    values a token and layer, against the ``2 * heads * head_dim`` of a
+    cache of expanded K and V; then ``phase_mla_absorb``."""
+    cfg = engine.cfg
+    stats = moe_checks(engine, requests, served, tag, DEEPSEEK_PARAMS, DEEPSEEK_PER_PREFILL)
+    values = stats["cache_values_per_token_layer"]
+    want = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    gqa = 2 * cfg.num_kv_heads * cfg.head_dim
+    itemsize = torch.finfo(getattr(torch, cfg.compute_dtype)).bits // 8
+    print(f"{tag} MLA cache {values} values ({stats['cache_bytes_per_token_layer']} bytes) per "
+          f"token and layer against {gqa} values ({gqa * itemsize} bytes) of a cache of "
+          f"{cfg.num_kv_heads} kv heads x {cfg.head_dim}: {gqa / values:.1f}x smaller "
+          f"{'ok' if values == want else 'FAIL'}")
+    check(values == want, f"MLA cache {values} values a token and layer, want {want}")
+    absorb_counts, absorb = phase_mla_absorb(engine)
+    launches = stats.pop("launches")
+    return dict(stats, mla_absorb=absorb, gqa_cache_values_per_token_layer=gqa,
+                launches={n: launches[n] + absorb_counts[n] for n in launches})
+
+
+def phase_mla_absorb(engine) -> tuple[dict, dict]:
+    """[mla-absorb]: the first MoE layer's MLA of the served weights at
+    full width in bf16, on the normed embeddings of seeded tokens: the
+    expanded ``mla_fwd`` over prompt + 16 (B1, once), a prefill of the
+    300-token prompt (B1, once) into an ``init_mla_cache`` of prompt + 16
+    slots, then 16 teacher-forced absorbed ``mla_decode`` steps (no B1).
+    Each step's output is held to the forward's at its position at
+    ``MLA_ABSORB_ATOL``/``RTOL``; as a control, the forward one position
+    earlier must fall outside that bar at every step. This checks the
+    absorption at full width without the routing, whose decode group is
+    not the forward's (C16)."""
+    from repro_torch.models import mla
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.tree import map_leaves
+
+    tag = "[mla-absorb]"
+    cfg = engine.cfg
+    mods = kernel_modules()
+    b, s, n = MLA_ABSORB_BATCH, MLA_ABSORB_PROMPT, NEW_TOKENS
+    block = map_leaves(lambda p: p[0], engine.params["groups"]["b0"])
+    tokens = torch.randint(0, cfg.vocab_size, (b, s + n),
+                           generator=torch.Generator().manual_seed(8)).cuda()
+    positions = torch.arange(s + n, device="cuda")
+    counts = {}
+    with torch.inference_mode():
+        x = apply_norm(engine.params["embed"][tokens], block["norm1"], cfg.norm, cfg.norm_eps)
+        zero_launches(mods)
+        full = mla.mla_fwd(block["mixer"], x, cfg, positions)
+        counts["forward"] = {name: mod.launches for name, mod in mods.items()}
+        zero_launches(mods)
+        _, pre = mla.mla_fwd(block["mixer"], x[:, :s], cfg, positions[:s], return_cache=True)
+        counts["prefill"] = {name: mod.launches for name, mod in mods.items()}
+        cache = mla.init_mla_cache(cfg, b, s + n, x.dtype, "cuda")
+        for key in cache:
+            cache[key][:, :s] = pre[key]
+        zero_launches(mods)
+        steps = []
+        for pos in range(s, s + n):
+            y, cache = mla.mla_decode(block["mixer"], x[:, pos : pos + 1], cache, pos, cfg)
+            steps.append(y[:, 0].float())
+        counts["decode"] = {name: mod.launches for name, mod in mods.items()}
+    torch.cuda.synchronize()
+    errs, off_errs, outside = [], [], 0
+    bar = dict(atol=MLA_ABSORB_ATOL, rtol=MLA_ABSORB_RTOL)
+    for i, got in enumerate(steps):
+        want, early = full[:, s + i].float(), full[:, s + i - 1].float()
+        errs.append((got - want).abs().max().item())
+        off_errs.append((got - early).abs().max().item())
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **bar)
+        outside += not torch.allclose(got, early, **bar)
+        check(ok, f"{tag} decode pos {s + i}: max_abs_err {errs[-1]:.3e} outside atol "
+              f"{MLA_ABSORB_ATOL}, rtol {MLA_ABSORB_RTOL}")
+    scale = full[:, s:].float().abs().max().item()
+    print(f"{tag} one MLA layer at full width ({cfg.num_heads} heads, q rank "
+          f"{cfg.mla.q_lora_rank}, kv rank {cfg.mla.kv_lora_rank}), bf16, B={b}, prompt {s}: "
+          f"{n} absorbed decode steps vs the expanded forward: max_abs_err {max(errs):.3e} "
+          f"(per step {' '.join(f'{e:.2e}' for e in errs)}; atol {MLA_ABSORB_ATOL}, rtol "
+          f"{MLA_ABSORB_RTOL}; |y| up to {scale:.3e}) ok")
+    print(f"{tag} control, the forward one position earlier: off by {min(off_errs):.3e} to "
+          f"{max(off_errs):.3e}, outside the bar at {outside} of {n} steps "
+          f"{'ok' if outside == n else 'FAIL'}")
+    check(outside == n, "the forward one position off passes the bar: the phase cannot see it")
+    want_counts = {"forward": {name: int(name == "flash_attention") for name in mods},
+                   "prefill": {name: int(name == "flash_attention") for name in mods},
+                   "decode": {name: 0 for name in mods}}
+    print(f"{tag} launches {json.dumps(counts)}")
+    check(counts == want_counts, f"launches {counts}, want {want_counts}")
+    total = {name: sum(c[name] for c in counts.values()) for name in mods}
+    return total, {"max_abs_err": max(errs), "errs": errs, "off_by_one_min": min(off_errs),
+                   "y_max": scale, "launches": counts}
 
 
 def phase_mixtral_swa(engine) -> tuple[dict, dict]:
@@ -1006,14 +1169,16 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
 
 def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
                      plain_iters: int, window: int = 0, atol: float = 3e-2,
-                     rtol: float = 3e-2) -> dict:
+                     rtol: float = 3e-2, v_width: int = 0) -> dict:
     """B1 in bf16, causal (within ``window`` when it is > 0), at ``shape``
     = (B, S, H, KV, D) on the kernel's (B*H, S, D) layout: kernel, plain
     twin and SDPA (the same function on (B, H, S, D): GQA by
     ``enable_gqa``; with a window, k and v repeated to H heads before the
     timed call and the window as a boolean mask), beside the bound. Kernel
     and SDPA are timed twice: by CUDA events over back-to-back calls, and
-    by their device time alone."""
+    by their device time alone. With ``v_width`` > 0, v's columns from
+    ``v_width`` on are zero, as MLA pads V: the bound counts the padded
+    function's work, and the share of it that the padding adds is printed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import causal_mask
 
@@ -1021,6 +1186,8 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
     k, v = (torch.randn((b * kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
+    if v_width > 0:
+        v[..., v_width:] = 0
     group = h // kv
     opts = {"group": group, "causal": True, "window": window}
     out = fa.flash_attention_cuda(q, k, v, **opts)
@@ -1033,6 +1200,14 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
     flops = 4 * b * h * d * pairs  # q.k and p.v over the visible pairs
     nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
+    padding = {}
+    if v_width > 0:  # without the padding: p.v and v, o at v_width columns
+        unpadded_bytes = 2 * b * s * (h * d + kv * d + kv * v_width + h * v_width)
+        padding = {"ops_share": 1 - 2 * b * h * pairs * (d + v_width) / flops,
+                   "bytes_share": 1 - unpadded_bytes / nbytes}
+        print(f"[time] flash {label}: V padded from {v_width} to {d}: the padding adds "
+              f"{padding['ops_share']:.4f} of the operations and {padding['bytes_share']:.4f} of "
+              f"the bytes of the padded function")
     kernel_ms, kernel_dev = timed(
         lambda: fa.flash_attention_cuda(q, k, v, **opts), 3, 20, 50,
         max(t_ops, t_bytes), f"flash {label}")
@@ -1058,7 +1233,8 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
     return {"shape": list(shape), "ms": kernel_ms, "device_ms": kernel_dev, "plain_ms": plain_ms,
             "library_ms": library_ms, "library_device_ms": library_dev,
             "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": err}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "err": err,
+            **({"padding": padding} if padding else {})}
 
 
 def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
@@ -1069,6 +1245,9 @@ def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     serving["mixtral window 4096, S=4352"] = flash_timing_row(
         "mixtral window 4096, S=4352", SWA_SHAPE, gen, 3, window=SWA_WINDOW,
         atol=MIXTRAL_BF16_ATOL, rtol=MIXTRAL_BF16_RTOL)
+    serving["MLA prefill S=300, D=192"] = flash_timing_row(
+        "MLA prefill S=300, D=192", (4, 300, MLA_HEADS, MLA_HEADS, MLA_HEAD_DIM), gen, 5,
+        atol=MIXTRAL_BF16_ATOL, rtol=MIXTRAL_BF16_RTOL, v_width=MLA_V_DIM)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1484,15 +1663,23 @@ def phase_continuum_process() -> dict:
     return json.loads(lines[-1])
 
 
-def layer_kernels(cfg) -> dict[str, int]:
-    """How many layers of ``cfg`` launch each kernel of ``kernel_modules()``
-    in one forward pass."""
-    from repro_torch.models import decoder_layout
+def train_launches(cfg) -> dict[str, int]:
+    """Each kernel of ``kernel_modules()``'s launches in one microbatch of
+    a training step: each layer of a stack (the dense prefix's too) in the
+    forward and in its remat recomputation, and the MTP block's once (the
+    reference does not rematerialise it)."""
+    from repro_torch.models.model import decoder_layout, mixer_of, prefix_layout
 
-    layout = decoder_layout(cfg)
-    kernel_of = {"attn": "flash_attention", "rwkv": "rwkv6_wkv", "mamba": "mamba_scan"}
-    return {name: layout.num_groups * sum(kernel_of[b.mixer] == name for b in layout.group)
-            for name in kernel_modules()}
+    kernel_of = {"attn": "flash_attention", "mla": "flash_attention", "rwkv": "rwkv6_wkv",
+                 "mamba": "mamba_scan"}
+    out = {name: 0 for name in kernel_modules()}
+    stacks = [decoder_layout(cfg)] + ([prefix_layout(cfg)] if cfg.dense_prefix_layers else [])
+    for layout in stacks:
+        for block in layout.group:
+            out[kernel_of[block.mixer]] += 2 * layout.num_groups
+    if cfg.mtp_depth > 0:
+        out[kernel_of[mixer_of(cfg)]] += 1
+    return out
 
 
 def phase_train_cross() -> dict:
@@ -1546,8 +1733,7 @@ def phase_train_cross() -> dict:
                         if key in worst:
                             worst[key] = max(worst[key], err)
                 counts = {name: mod.launches for name, mod in mods.items()}
-                # each layer's kernel: forward and remat recomputation, per microbatch
-                want = {name: 3 * k * 2 * n for name, n in layer_kernels(cfg).items()}
+                want = {name: 3 * k * n for name, n in train_launches(cfg).items()}
                 check(counts == want, f"{arch} {optimizer} k={k}: launches {counts}, want {want}")
                 launches[arch] = {n: launches.get(arch, {}).get(n, 0) + counts[n] for n in mods}
                 for part in ("params", "opt"):
@@ -1963,6 +2149,11 @@ def main() -> int:
     mixtral_counts, mixtral_stats = phase_slice("mixtral-8x7b", "half-depth", PROMPT_LENS,
                                                 MIXTRAL_PER_PREFILL, after=mixtral_checks)
     swa_counts = mixtral_stats.pop("launches")
+    print(f"[slice deepseek-v3-671b] mixtral freed: {torch.cuda.memory_allocated()} bytes "
+          f"allocated, {torch.cuda.mem_get_info()[0]} free")
+    deepseek_counts, deepseek_stats = phase_slice("deepseek-v3-671b", "two-moe", PROMPT_LENS,
+                                                  DEEPSEEK_PER_PREFILL, after=deepseek_checks)
+    absorb_counts = deepseek_stats.pop("launches")
     phase_cross_device("granite-3-8b", "smoke", 72)
     phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
     phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
@@ -1970,6 +2161,7 @@ def main() -> int:
     phase_cross_device("jamba-1.5-large-398b", "smoke", 67, reseed_jamba)
     phase_cross_device("starcoder2-15b", "smoke", 72)
     phase_cross_device("qwen2.5-14b", "smoke", 72)
+    phase_cross_device("deepseek-v3-671b", "smoke", 72)
     train_counts, train_stats = phase_train_full(grad_stats)
     continuum_counts = phase_continuum_process()
     cross_counts, cross_worst = phase_train_cross()
@@ -1990,7 +2182,9 @@ def main() -> int:
              "stablelm-3b executors-continuum": executor_counts,
              "stablelm-3b executors-serve-full": serve_exec_counts}
     earlier = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
-    paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b swa": swa_counts,
+    paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b checks": swa_counts,
+                  "deepseek-v3-671b two-moe": deepseek_counts,
+                  "deepseek-v3-671b checks": absorb_counts,
                   **{f"{arch} train-cross": c for arch, c in cross_counts.items()}})
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)} "
@@ -2007,6 +2201,7 @@ def main() -> int:
     print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "
           f"serving shapes {json.dumps(serving)}")
     print(f"[done] serving mixtral-8x7b half-depth {json.dumps(mixtral_stats)}")
+    print(f"[done] serving deepseek-v3-671b two-moe {json.dumps(deepseek_stats)}")
     print(f"[done] training stablelm-3b {json.dumps(train_stats)}; flash attention at the training "
           f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
           f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's "

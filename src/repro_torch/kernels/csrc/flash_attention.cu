@@ -8,11 +8,13 @@
 // float32; the final divide clamps the denominator at 1e-30. Output has q's
 // dtype (float32 or bfloat16).
 //
-// What bounds it on an H100. At serving shapes (S in the hundreds to
-// thousands, D = 80 or 128) attention does ~2*S*D operations per byte of
-// q/k/v/o, so the work, not the bytes, is the bound: causal prefill at B=4,
-// S=2048, H=32, D=80 is ~8.6e10 operations against ~168 MB. The scores never
-// go to device memory, which is what the TPU kernel's VMEM tiling bought.
+// What bounds it on an H100. Causal attention does ~S/4 operations per byte
+// of bf16 q/k/v/o at any D (80, 128, or 192 for MLA's q and k) against the
+// card's ~295, so at S in the thousands the work, not the bytes, is the
+// bound: causal prefill at B=4, S=2048, H=32, D=80 is ~8.6e10 operations
+// against ~168 MB; at serving prompts of ~300 tokens the bytes are (MLA at
+// B=4, H=128, D=192: 236 MB against 1.8e10 operations). The scores never go
+// to device memory, which is what the TPU kernel's VMEM tiling bought.
 //
 // Two kernels, one per dtype, because the two dtypes have different bars:
 //   * bfloat16 (the serving path) runs both products on the tensor cores:
@@ -29,7 +31,7 @@
 //   * one block of 4 warps per (b*h, 64-row q tile); each warp owns 16 query
 //     rows; q tiles run longest-causal-row first;
 //   * the head dim is padded to the next multiple of 16 with zeros in shared
-//     memory (a template parameter, 16..128); rows are padded by 16 bytes so
+//     memory (a template parameter, 16..192); rows are padded by 16 bytes so
 //     the 8 rows an ldmatrix phase reads fall in 8 different bank groups;
 //   * q, and 64-row k and v tiles, are staged in bf16 by 16-byte cp.async
 //     copies at offsets fixed at compile time (rows whose length is not a
@@ -39,7 +41,8 @@
 //   * q, k and v fragments come by ldmatrix (.trans for v) from 32-bit
 //     shared addresses, a per-lane base plus compile-time offsets; q is
 //     re-read per k-step rather than held in registers, which keeps two
-//     (D = 128, by shared memory) to four blocks on an SM;
+//     (D = 128, by shared memory) to four blocks on an SM, and one at
+//     D = 192 (MLA: 128,000 bytes of tiles, 96 accumulator registers);
 //   * the online softmax stays in registers: scores are scaled by
 //     D^-0.5 * log2(e) so that p = 2^(s - m) by ex2.approx; row max by a
 //     tree over the thread's columns and quad shuffles; each thread keeps a
@@ -52,10 +55,11 @@
 //   * any S: rows past S are zero-filled by the copies, masked, and not
 //     stored.
 //
-// float32 design (the port's first kernel, kept as it was): one block of 256
-// threads per 64-row q tile, scalar float32 FMAs from shared memory, each
-// thread 4 query rows x 4 score columns and 4 rows x ceil(D/16) output
-// columns, odd row strides against bank conflicts, zero-padded ragged tiles.
+// float32 design (the port's first kernel): one block of 256 threads per
+// 64-row q tile, scalar float32 FMAs from shared memory, each thread 4 query
+// rows x 4 score columns and 4 rows x ceil(D/16) output columns (held in
+// registers sized for D <= 128, or for D <= 192 in a second instance), odd
+// row strides against bank conflicts, zero-padded ragged tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,7 +69,7 @@
 
 namespace {
 
-constexpr int DMAX = 128;  // largest head dim
+constexpr int DMAX = 192;  // largest head dim: MLA's qk_nope + qk_rope
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -336,7 +340,6 @@ constexpr int BK = 64;        // kv rows per tile
 constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr int TR = BQ / 16;   // query rows per thread
 constexpr int TC = BK / 16;   // score columns per thread
-constexpr int DC = DMAX / 16; // output columns per thread, at most
 constexpr int PS = BK + 16;   // row stride of the probability tile
 
 // Copy rows [row0, row0 + BK) of a (S, D) slab into shared memory, zero past
@@ -350,6 +353,7 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
   }
 }
 
+template <int DC>  // output columns per thread: D <= 16 * DC
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o, int s, int d, int group,
@@ -473,14 +477,15 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <int DC>
 int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
                int group, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)(BQ + 2 * BK) * (d | 1) + (size_t)BQ * PS) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((s + BQ - 1) / BQ, bh);
-  flash_fwd_f32_kernel<<<grid, THREADS, smem, stream>>>(
+  flash_fwd_f32_kernel<DC><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), s, d, group, causal, window, scale);
   return (int)cudaGetLastError();
@@ -499,7 +504,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (d < 1 || d > DMAX || s < 1 || bh < 1 || group < 1 || bh % group != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(q, k, v, o, bh, s, d, group, causal, window, scale, st);
+  if (dtype == 0) {
+    if (d <= 128) return launch_f32<8>(q, k, v, o, bh, s, d, group, causal, window, scale, st);
+    return launch_f32<12>(q, k, v, o, bh, s, d, group, causal, window, scale, st);
+  }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
   switch ((d + 15) / 16) {
@@ -510,6 +518,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 5: return launch_bf16<5>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
     case 6: return launch_bf16<6>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
     case 7: return launch_bf16<7>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    default: return launch_bf16<8>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    case 8: return launch_bf16<8>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    case 9: return launch_bf16<9>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    case 10: return launch_bf16<10>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    case 11: return launch_bf16<11>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    default: return launch_bf16<12>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
   }
 }

@@ -39,7 +39,7 @@ from .build import KernelBuild
 from .build import build as build_kernel
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 192  # MLA: qk_nope 128 + qk_rope 64, V padded to it
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -125,17 +125,17 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """Launch the CUDA kernel; raise on anything it does not take."""
     global launches
+    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
+        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}: need (BH,S,D)")
+    bh, s, d = q.shape
+    if not 1 <= d <= MAX_HEAD_DIM or s < 1 or bh > 65535:
+        raise ValueError(f"unsupported shape BH={bh} S={s} D={d} (D<=192, BH<=65535)")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need all float32 or all bfloat16")
-    if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
-        raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}: need (BH,S,D)")
-    bh, s, d = q.shape
     if group < 1 or k.shape[0] * group != bh or k.shape[1:] != (s, d):
         raise ValueError(f"q {tuple(q.shape)} and kv {tuple(k.shape)} disagree for group {group}")
-    if not 1 <= d <= MAX_HEAD_DIM or s < 1 or bh > 65535:
-        raise ValueError(f"unsupported shape BH={bh} S={s} D={d} (D<=128, BH<=65535)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     fn = build().lib.flash_attention_fwd

@@ -5,6 +5,7 @@ each result into an in-memory CFS (``runtime.store.MemoryStore``).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b --variant full --requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-1.5-large-398b --variant no-moe
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b --variant half-depth
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b --variant two-moe
 
 Weights are random, drawn from ``--seed``. The broker wiring (a torch
 executor registered with a Colonies server) is not ported yet.
@@ -68,7 +69,7 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--variant", default="full",
                     help="full | smoke | an arch's own variant (jamba: no-moe, smoke-no-moe; "
-                         "mixtral: half-depth)")
+                         "mixtral: half-depth; deepseek-v3-671b: two-moe)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch-size", type=int, default=4)
     ap.add_argument("--max-new-tokens", type=int, default=16)

@@ -25,6 +25,12 @@ def matmul_promote(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(dtype), w.to(dtype))
 
 
+def einsum_promote(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the promoted dtype of both, as ``jnp.einsum`` does."""
+    dtype = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dtype), b.to(dtype))
+
+
 def project_in(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk")."""
     d, h, k = w.shape

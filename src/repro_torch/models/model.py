@@ -3,21 +3,27 @@
 Port of the reference's ``models/model.py`` for the ported layouts: dense
 decoder-only models (stablelm, granite, starcoder2, qwen2.5), a group of
 one ``[attn + mlp]`` block; MoE models (mixtral), a group of one
-``[attn + moe]`` block; RWKV-6, a group of one ``[time-mix +
-channel-mix]`` block, each tiled ``num_layers`` times; and the jamba
-hybrid, a group of ``hybrid_period`` blocks (attention at
-``hybrid_attn_index``, Mamba elsewhere; experts in place of the dense MLP
-on every block with ``i % moe_every == 1``, or none without experts)
-tiled ``num_layers / hybrid_period`` times. Parameters keep the
-reference's stacked ``(num_groups, ...)`` leaves so converted weights map
-one to one; the groups run in a Python loop. Each MoE block's
-load-balance and z losses are summed over the blocks of a group, then
-over the groups, in the reference's order. Under grad each group runs
-inside a non-reentrant ``torch.utils.checkpoint`` as the reference wraps
-its scan body in ``jax.checkpoint``: with ``cfg.remat == "full"`` it is
-recomputed whole in the backward pass, with ``"dots"`` the outputs of the
-products without batch dimensions (``mm``, ``addmm``) are saved and the
-rest recomputed.
+``[attn + moe]`` block; deepseek-v3, a group of one ``[mla + moe]`` block
+behind a stack of ``dense_prefix_layers`` ``[mla + mlp]`` blocks
+(``prefix_layout`` under ``prefix_cfg``: the MLP ``prefix_d_ff`` wide, no
+experts), with a multi-token-prediction block (``mtp_logits``); RWKV-6, a
+group of one ``[time-mix + channel-mix]`` block, each tiled
+``num_layers`` times; and the jamba hybrid, a group of ``hybrid_period``
+blocks (attention at ``hybrid_attn_index``, Mamba elsewhere; experts in
+place of the dense MLP on every block with ``i % moe_every == 1``, or
+none without experts) tiled ``num_layers / hybrid_period`` times.
+Parameters keep the reference's stacked ``(num_groups, ...)`` leaves so
+converted weights map one to one; the groups run in a Python loop, the
+prefix stack's before the main stack's, each with a cache of its own
+(``prefix_layers``, ``layers``). Each MoE block's load-balance and z
+losses are summed over the blocks of a group, then over the groups, in
+the reference's order; the prefix has no experts and adds none. Under
+grad each group (the prefix's too; not the MTP block, as in the
+reference) runs inside a non-reentrant ``torch.utils.checkpoint`` as the
+reference wraps its scan body in ``jax.checkpoint``: with ``cfg.remat ==
+"full"`` it is recomputed whole in the backward pass, with ``"dots"`` the
+outputs of the products without batch dimensions (``mm``, ``addmm``) are
+saved and the rest recomputed.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, MoEConfig
 from ..tree import map_leaves
 from . import attention as attn
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
@@ -46,7 +53,7 @@ from .layers import activate, apply_norm
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str  # attn | rwkv | mamba (the mixers ported so far)
+    mixer: str  # attn | mla | rwkv | mamba (the mixers ported so far)
     mlp: str  # dense | moe | rwkv_cm
 
 
@@ -60,9 +67,13 @@ class Layout:
         return len(self.group) * self.num_groups
 
 
+def mixer_of(cfg: ModelConfig) -> str:
+    return "mla" if cfg.attention == "mla" else "attn"
+
+
 def decoder_layout(cfg: ModelConfig) -> Layout:
-    """The dense, MoE, RWKV and jamba cases of the reference's layout;
-    other families are not ported."""
+    """The dense, MoE, MLA, RWKV and jamba cases of the reference's layout;
+    cross-attention and encoder-decoder models are not ported."""
     moe_on = cfg.moe.num_experts > 0
     if cfg.family == "ssm":
         return Layout((BlockDef("rwkv", "rwkv_cm"),), cfg.num_layers)
@@ -73,15 +84,20 @@ def decoder_layout(cfg: ModelConfig) -> Layout:
             for i in range(cfg.hybrid_period)
         )
         return Layout(blocks, cfg.num_layers // cfg.hybrid_period)
-    if (
-        cfg.cross_attn_every > 0 or cfg.attention == "mla" or cfg.is_encdec
-        or cfg.dense_prefix_layers > 0 or cfg.mtp_depth > 0
-        or (moe_on and cfg.moe.moe_every > 1)
-    ):
+    if cfg.cross_attn_every > 0 or cfg.is_encdec or (moe_on and cfg.moe.moe_every > 1):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, RWKV-6 and jamba branches are ported to "
-            f"repro_torch")
-    return Layout((BlockDef("attn", "moe" if moe_on else "dense"),), cfg.num_layers)
+            f"{cfg.name}: only the dense, MoE, MLA, RWKV-6 and jamba branches are ported to "
+            f"repro_torch (cross-attention and the encoder: ROADMAP A14)")
+    return Layout((BlockDef(mixer_of(cfg), "moe" if moe_on else "dense"),), cfg.num_layers)
+
+
+def prefix_layout(cfg: ModelConfig) -> Layout:
+    """Dense-MLP prefix layers (deepseek: first 3 of 61)."""
+    return Layout((BlockDef(mixer_of(cfg), "dense"),), cfg.dense_prefix_layers)
+
+
+def prefix_cfg(cfg: ModelConfig) -> ModelConfig:
+    return cfg.copy(d_ff=cfg.prefix_d_ff or cfg.d_ff, moe=MoEConfig())
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -108,6 +124,8 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
     if bdef.mixer == "attn":
         res = attn.attn_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
+    elif bdef.mixer == "mla":
+        res = mla_mod.mla_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
     elif bdef.mixer == "rwkv":
         res = rwkv_mod.rwkv_time_mix_fwd(bp["mixer"], h, cfg, return_cache=return_cache)
     elif bdef.mixer == "mamba":
@@ -188,22 +206,15 @@ def _zero_aux(device: torch.device) -> dict:
     return {"lb_loss": zero, "z_loss": zero.clone()}
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool = False):
-    """Full-sequence forward. batch: {"tokens": (B, S) integer tensor}.
-
-    Returns (logits, aux[, cache]); aux holds the MoE blocks' summed
-    ``lb_loss`` and ``z_loss`` (zeros without experts); cache leaves are
-    stacked (num_groups, ...).
-    """
-    layout = decoder_layout(cfg)
-    tokens = batch["tokens"].long()
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
-    positions = torch.arange(tokens.shape[1], device=x.device)
+def _run_stack(layout: Layout, groups_params: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, return_cache: bool):
+    """The groups of one stack in order. Returns (x, the summed aux or
+    None, the caches stacked (num_groups, ...) or None)."""
     remat = None if return_cache else _remat_groups(cfg)
     # one view per group of every stacked leaf: under grad, unbind's backward
     # stacks the groups' gradients once, where indexing would add a zero-filled
     # gradient of the whole stacked leaf for every group
-    groups = map_leaves(lambda p: p.unbind(0), params["groups"])
+    groups = map_leaves(lambda p: p.unbind(0), groups_params)
     aux = None
     caches = []
     for g in range(layout.num_groups):
@@ -216,12 +227,52 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool =
             x, gaux, gcache = _group_fwd(layout, gparams, x, cfg, positions, return_cache)
             caches.append(gcache)
         aux = _add_aux(aux, gaux)
-    logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
-    out = (logits, aux if aux is not None else _zero_aux(x.device))
+    stacked = map_leaves(lambda *leaves: torch.stack(leaves), *caches) if return_cache else None
+    return x, aux, stacked
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool = False,
+            return_hidden: bool = False):
+    """Full-sequence forward. batch: {"tokens": (B, S) integer tensor}.
+
+    Returns (logits, aux[, cache][, hidden]); aux holds the MoE blocks'
+    summed ``lb_loss`` and ``z_loss`` (zeros without experts); cache leaves
+    are stacked (num_groups, ...), the dense prefix's under
+    ``prefix_layers``; hidden is the final norm's output, which
+    ``mtp_logits`` takes.
+    """
+    tokens = batch["tokens"].long()
+    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    if cfg.dense_prefix_layers > 0:
+        x, _, prefix_caches = _run_stack(prefix_layout(cfg), params["prefix_groups"], x,
+                                         prefix_cfg(cfg), positions, return_cache)
+    x, aux, caches = _run_stack(decoder_layout(cfg), params["groups"], x, cfg, positions,
+                                return_cache)
+    hidden = apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps)
+    out = (_logits(params, cfg, hidden), aux if aux is not None else _zero_aux(x.device))
     if return_cache:
-        stacked = map_leaves(lambda *leaves: torch.stack(leaves), *caches)
-        out += ({"layers": stacked, "memory": None},)
+        cache = {"layers": caches, "memory": None}
+        if cfg.dense_prefix_layers > 0:
+            cache["prefix_layers"] = prefix_caches
+        out += (cache,)
+    if return_hidden:
+        out += (hidden,)
     return out
+
+
+def mtp_logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
+               tokens: torch.Tensor) -> torch.Tensor:
+    """DeepSeek MTP: predict token t+2 from (hidden_t, embed(token_{t+1})).
+    Returns (B, S-1, V) logits, aligned with the targets t+2."""
+    mtp = params["mtp"]
+    h = hidden[:, :-1]  # positions 0..S-2
+    nxt = params["embed"][tokens[:, 1:].long()].to(h.dtype)  # embed of t+1
+    both = torch.cat([apply_norm(h, mtp["norm_in"], cfg.norm, cfg.norm_eps), nxt], dim=-1)
+    x = attn.matmul_promote(both, mtp["proj"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, _ = _block_fwd(BlockDef(mixer_of(cfg), "dense"), mtp["block"], x, cfg, positions, False)
+    return _logits(params, cfg, x)
 
 
 _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 2
@@ -248,7 +299,10 @@ def pad_cache(cache: dict, cfg: ModelConfig, max_len: int) -> dict:
                 out[key] = val
         return out
 
-    return dict(cache, layers=walk(cache["layers"]))
+    new = dict(cache, layers=walk(cache["layers"]))
+    if "prefix_layers" in cache:
+        new["prefix_layers"] = walk(cache["prefix_layers"])
+    return new
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = None):
@@ -271,6 +325,9 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
     if bdef.mixer == "attn":
         out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos, cfg)
+    elif bdef.mixer == "mla":
+        out, _ = mla_mod.mla_decode(
+            bp["mixer"], h, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}, pos, cfg)
     elif bdef.mixer == "rwkv":
         out, _ = rwkv_mod.rwkv_time_mix_decode(
             bp["mixer"], h, {"wkv": cache["wkv"], "x_prev": cache["x_prev"]}, cfg)
@@ -291,18 +348,27 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
     return x + out
 
 
+def _decode_stack(layout: Layout, groups_params: dict, layer_caches: dict, x: torch.Tensor,
+                  pos: int, cfg: ModelConfig) -> torch.Tensor:
+    for g in range(layout.num_groups):
+        gparams = map_leaves(lambda p: p[g], groups_params)
+        for i, bdef in enumerate(layout.group):
+            lcache = map_leaves(lambda c: c[g], layer_caches[f"b{i}"])
+            x = _block_decode(bdef, gparams[f"b{i}"], x, lcache, pos, cfg)
+    return x
+
+
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos: int):
     """One token for the whole batch. tokens: (B, 1). Returns (logits, cache).
 
     The cache is updated in place: each group's slice is a view of the
-    stacked leaves, and the mixers write into it.
+    stacked leaves, and the mixers write into it. The dense prefix runs
+    first, on its own ``prefix_layers``.
     """
-    layout = decoder_layout(cfg)
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
-    for g in range(layout.num_groups):
-        gparams = map_leaves(lambda p: p[g], params["groups"])
-        for i, bdef in enumerate(layout.group):
-            lcache = map_leaves(lambda c: c[g], cache["layers"][f"b{i}"])
-            x = _block_decode(bdef, gparams[f"b{i}"], x, lcache, pos, cfg)
+    if cfg.dense_prefix_layers > 0:
+        x = _decode_stack(prefix_layout(cfg), params["prefix_groups"], cache["prefix_layers"], x,
+                          pos, prefix_cfg(cfg))
+    x = _decode_stack(decoder_layout(cfg), params["groups"], cache["layers"], x, pos, cfg)
     logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
     return logits, cache

@@ -29,14 +29,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .attention import matmul_promote
+from .attention import einsum_promote, matmul_promote
 from .layers import activate
-
-
-def _einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` in the promoted dtype of both, as ``jnp.einsum`` does."""
-    dtype = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(eq, a.to(dtype), b.to(dtype))
 
 
 def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
@@ -91,10 +85,11 @@ def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     dispatch, combine, aux = _route(grouped, params["router"], cfg)
     dtype = x.dtype
     expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(dtype), grouped)
-    gate = _einsum("gecd,edf->gecf", expert_in, params["w_gate"])
-    up = _einsum("gecd,edf->gecf", expert_in, params["w_up"])
-    expert_out = _einsum("gecf,efd->gecd", activate(gate, up, cfg.activation), params["w_down"])
-    out = _einsum("gsec,gecd->gsd", combine.to(dtype), expert_out)
+    gate = einsum_promote("gecd,edf->gecf", expert_in, params["w_gate"])
+    up = einsum_promote("gecd,edf->gecf", expert_in, params["w_up"])
+    expert_out = einsum_promote("gecf,efd->gecd", activate(gate, up, cfg.activation),
+                                params["w_down"])
+    out = einsum_promote("gsec,gecd->gsd", combine.to(dtype), expert_out)
     out = out.reshape(-1, d)[: b * s].reshape(b, s, d)
 
     if cfg.moe.num_shared_experts > 0:

@@ -1,10 +1,11 @@
-"""Parameter specs and initialisation (dense, MoE, RWKV-6 and jamba branches).
+"""Parameter specs and initialisation (dense, MoE, MLA, RWKV-6 and jamba branches).
 
 Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
 (``models/sharding.py``) and of the spec functions of ``models/model.py``,
-``models/attention.py``, ``models/moe.py``, ``models/rwkv.py`` and
-``models/ssm.py``. The shape tree equals the reference's
-``model_spec(cfg)`` for the ported architectures.
+``models/attention.py``, ``models/mla.py``, ``models/moe.py``,
+``models/rwkv.py`` and ``models/ssm.py``. The shape tree equals the
+reference's ``model_spec(cfg)`` for the ported architectures, deepseek's
+``prefix_groups`` and ``mtp`` subtrees included.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..tree import leaves_with_names, map_leaves
-from .model import BlockDef, decoder_layout
+from .model import BlockDef, decoder_layout, mixer_of, prefix_cfg, prefix_layout
 from .ssm import d_inner
 
 
@@ -153,6 +154,22 @@ def _mlp_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
+def mla_spec(cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    m = cfg.mla
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "wq_a": ParamLeaf((d, m.q_lora_rank), ("embed", "lora")),
+        "q_norm": {"scale": ParamLeaf((m.q_lora_rank,), ("lora",), init="ones")},
+        "wq_b": ParamLeaf((m.q_lora_rank, h, dn + dr), ("lora", "heads", "qk_dim")),
+        "wkv_a": ParamLeaf((d, m.kv_lora_rank + dr), ("embed", "lora")),
+        "kv_norm": {"scale": ParamLeaf((m.kv_lora_rank,), ("lora",), init="ones")},
+        "wk_b": ParamLeaf((m.kv_lora_rank, h, dn), ("lora", "heads", "qk_dim")),
+        "wv_b": ParamLeaf((m.kv_lora_rank, h, dv), ("lora", "heads", "head_dim")),
+        "wo": ParamLeaf((h, dv, d), ("heads", "head_dim", "embed")),
+    }
+
+
 def rwkv_time_mix_spec(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     lw = cfg.rwkv.decay_lora
@@ -241,7 +258,8 @@ def moe_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-_MIXER_SPECS = {"attn": attn_spec, "rwkv": rwkv_time_mix_spec, "mamba": mamba_spec}
+_MIXER_SPECS = {"attn": attn_spec, "mla": mla_spec, "rwkv": rwkv_time_mix_spec,
+                "mamba": mamba_spec}
 _MLP_SPECS = {"dense": _mlp_spec, "moe": moe_spec, "rwkv_cm": rwkv_channel_mix_spec}
 
 
@@ -254,15 +272,25 @@ def _block_spec(bdef: BlockDef, cfg: ModelConfig) -> dict:
     }
 
 
+def _groups_spec(layout, cfg: ModelConfig) -> dict:
+    return stack_spec({f"b{i}": _block_spec(b, cfg) for i, b in enumerate(layout.group)},
+                      layout.num_groups)
+
+
 def model_spec(cfg: ModelConfig) -> dict:
-    layout = decoder_layout(cfg)
     spec: dict[str, Any] = {
         "embed": ParamLeaf((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed"),
-        "groups": stack_spec(
-            {f"b{i}": _block_spec(b, cfg) for i, b in enumerate(layout.group)}, layout.num_groups
-        ),
+        "groups": _groups_spec(decoder_layout(cfg), cfg),
         "norm_f": _norm_spec(cfg),
     }
     if not cfg.tied_embeddings:
         spec["lm_head"] = ParamLeaf((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
+    if cfg.dense_prefix_layers > 0:  # deepseek: dense-MLP layers ahead of the MoE ones
+        spec["prefix_groups"] = _groups_spec(prefix_layout(cfg), prefix_cfg(cfg))
+    if cfg.mtp_depth > 0:  # one block of the main cfg: its MLP is d_ff wide
+        spec["mtp"] = {
+            "proj": ParamLeaf((2 * cfg.d_model, cfg.d_model), ("embed_noshard", "embed")),
+            "norm_in": _norm_spec(cfg),
+            "block": _block_spec(BlockDef(mixer_of(cfg), "dense"), cfg),
+        }
     return spec

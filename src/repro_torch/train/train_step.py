@@ -6,7 +6,9 @@ Port of the reference's ``train/train_step.py``. The step is a function
 k > 1 the batch arrives pre-split as (k, B/k, ...) and float32 gradients
 accumulate as g/k in microbatch order. With experts the loss adds the
 weighted load-balance and router z losses, reported as ``moe_lb`` and
-``moe_z``. Multi-token prediction (ROADMAP A13) is not ported and raises.
+``moe_z``; with multi-token prediction (deepseek) it adds
+``mtp_loss_weight`` times the MTP block's CE on token t+2, reported as
+``mtp_ce``.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, TrainConfig
-from ..models.model import forward
+from ..models.model import forward, mtp_logits
 from ..models.moe import moe_aux_loss
 from ..tree import leaves, map_leaves, rebuild
 from .optimizer import clip_by_global_norm, global_norm, lr_schedule, opt_init, opt_update
@@ -36,16 +38,11 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return (nll * mask).sum() / denom, denom
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: multi-token prediction is not ported to repro_torch (ROADMAP A13)")
-
-
 def loss_fn(params: Any, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
-    _check_ported(cfg)
     tokens = batch["tokens"]
-    logits, aux = forward(params, cfg, batch)
+    want_hidden = cfg.mtp_depth > 0
+    out = forward(params, cfg, batch, return_hidden=want_hidden)
+    logits, aux = out[0], out[1]
     ce, _ = cross_entropy(logits[:, :-1], tokens[:, 1:])
     loss = ce
     metrics = {"ce": ce}
@@ -53,6 +50,12 @@ def loss_fn(params: Any, cfg: ModelConfig, tcfg: TrainConfig, batch: dict):
         loss = loss + moe_aux_loss(aux, cfg)
         metrics["moe_lb"] = aux["lb_loss"]
         metrics["moe_z"] = aux["z_loss"]
+    if want_hidden:
+        # MTP: logits at position t predict token t+2
+        mlogits = mtp_logits(params, cfg, out[2], tokens)  # (B, S-1, V)
+        mtp_ce, _ = cross_entropy(mlogits[:, :-1], tokens[:, 2:])
+        loss = loss + tcfg.mtp_loss_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
     metrics["loss"] = loss
     return loss, metrics
 
@@ -77,7 +80,6 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     float32 0-d tensors. The new parameters and optimizer state are written
     into the given state's tensors (as ``donate_argnums`` lets XLA do), so
     a step holds one copy of them."""
-    _check_ported(cfg)
 
     def grads_of(params: Any, batch: dict) -> tuple[list[torch.Tensor], dict]:
         live = map_leaves(lambda p: p.detach().requires_grad_(), params)

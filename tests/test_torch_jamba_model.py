@@ -362,7 +362,7 @@ def test_pad_cache_leaves_mamba_state_and_pads_attention_as_the_reference(ref_mo
 
 
 @pytest.mark.parametrize("bdef,name", [(BlockDef("xattn", "dense"), "xattn"),
-                                       (BlockDef("mla", "dense"), "mla")])
+                                       (BlockDef("attn_x", "dense"), "attn_x")])
 def test_unknown_block_kinds_raise_in_forward_and_decode(bdef, name, ref_model):
     """A mixer or MLP that is not ported raises instead of running another
     block's code."""

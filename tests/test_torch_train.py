@@ -24,7 +24,6 @@ from repro.train.train_step import cross_entropy as ref_cross_entropy
 from repro.train.train_step import init_state as ref_init_state
 from repro.train.train_step import make_train_step as ref_make_train_step
 from repro_torch.configs import TrainConfig, get_config
-from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import params_from_reference, state_from_reference, state_to_reference
 from repro_torch.models import init_params, model_spec
 from repro_torch.train import optimizer as opt
@@ -238,13 +237,11 @@ def test_loss_decreases_over_steps(smoke):
 
 
 def test_moe_and_mtp_raise_with_their_roadmap_items():
-    """Multi-token prediction (A13) still raises. MoE (A10) raised before it
-    was ported; now an MoE config's loss adds the weighted load-balance and
-    z losses, reported as ``moe_lb`` and ``moe_z``."""
-    with pytest.raises(NotImplementedError, match="A13"):
-        make_train_step(ModelConfig(mtp_depth=1), TrainConfig())
-    with pytest.raises(NotImplementedError, match="A13"):
-        loss_fn({}, ModelConfig(mtp_depth=1), TrainConfig(), {})
+    """MoE (A10) and multi-token prediction (A13) raised before they were
+    ported; now an MoE config's loss adds the weighted load-balance and z
+    losses, reported as ``moe_lb`` and ``moe_z``, and an MTP config's adds
+    ``mtp_loss_weight`` times the MTP block's CE, reported as ``mtp_ce``
+    (held to the reference in ``test_torch_deepseek_model.py``)."""
     cfg = _f32(get_config("mixtral-8x7b", "smoke"))
     params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
     tokens = torch.from_numpy(SyntheticTokens(cfg, 2, 16, seed=1).batch_at(0)["tokens"])
@@ -253,6 +250,18 @@ def test_moe_and_mtp_raise_with_their_roadmap_items():
     want = metrics["ce"] + 0.01 * metrics["moe_lb"] + 1e-3 * metrics["moe_z"]
     assert float(metrics["moe_lb"]) > 0 and float(metrics["moe_z"]) > 0
     assert float(loss) == pytest.approx(float(want), rel=1e-6)
+    cfg = _f32(get_config("deepseek-v3-671b", "smoke"))
+    tcfg = TrainConfig(mtp_loss_weight=0.5)
+    params = init_params(model_spec(cfg), torch.Generator().manual_seed(0), torch.float32, "cpu")
+    loss, metrics = loss_fn(params, cfg, tcfg, {"tokens": tokens % cfg.vocab_size})
+    assert sorted(metrics) == ["ce", "loss", "moe_lb", "moe_z", "mtp_ce"]
+    want = (metrics["ce"] + 0.01 * metrics["moe_lb"] + 1e-3 * metrics["moe_z"]
+            + 0.5 * metrics["mtp_ce"])
+    assert float(metrics["mtp_ce"]) > 0
+    assert float(loss) == pytest.approx(float(want), rel=1e-6)
+    step = make_train_step(cfg, tcfg)
+    _, step_metrics = step(init_state(params, tcfg), {"tokens": tokens % cfg.vocab_size})
+    assert "mtp_ce" in step_metrics
 
 
 def test_microbatched_step_refuses_an_unsplit_batch(smoke):
