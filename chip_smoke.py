@@ -13,9 +13,12 @@ Phases, each of which exits non-zero when it fails:
      spills, and the Mamba scan's resident blocks per SM;
   3. each kernel against its plain-torch twin on the card, case by case
      (the Mamba scan also at both ends of jamba's decay range and with x
-     in bfloat16); where a case's window is shorter than its sequence, the
-     twin without the window and with a shorter one must fail the case's
-     bar;
+     in bfloat16; flash attention also bidirectional and with k/v of a
+     length of their own, at llama-vision's and seamless's cross-attention
+     and seamless's encoder); where a case's window is shorter than its
+     sequence, the twin without the window and with a shorter one must
+     fail the case's bar, and past a thousand keys the twin without the
+     last 64;
   4. the slices: stablelm-3b and rwkv6-7b at full width and depth,
      jamba-1.5-large without experts at full width and 16 layers,
      mixtral-8x7b at every published width and 16 of 32 layers
@@ -38,10 +41,22 @@ Phases, each of which exits non-zero when it fails:
      held to MLA's 576 values, and ``[mla-absorb]`` holds 16 absorbed
      decode steps of one full-width MLA layer (B=4, a 300-token prefill)
      to the expanded ``mla_fwd`` at ``MLA_ABSORB_ATOL``/``RTOL``, while the
-     forward one position off must fall outside that bar;
+     forward one position off must fall outside that bar. Then
+     llama-3.2-vision-11b and seamless-m4t-large-v2 at full width and
+     depth, every cross-attention gate set to ``GATE`` (0 at init, where
+     the memory reaches nothing), each request with a seeded memory of
+     its own (1,601 image patches; 1,000 source frames), served through
+     ``generate(..., extras=...)`` since the batch handler passes no
+     memory (ROADMAP C19): B1 40 and 72 a prefill (causal,
+     cross-attention, and seamless's bidirectional encoder), and
+     ``[xattn-decode]``: B=1, a 300-token prompt, 16 decode steps held to
+     the forward (a float32 copy of the weights at ``XATTN_DECODE_ATOL``,
+     the bf16 distances printed), while the forward on another request's
+     memory must fall outside that bar;
   5. granite, rwkv6, jamba (with and without experts), mixtral, starcoder2,
-     qwen2.5 and deepseek (smoke, f32) on the card (kernels) against the
-     CPU (plain twins) on the same weights: logits and greedy tokens;
+     qwen2.5, deepseek, llama-vision and seamless (smoke, f32) on the card
+     (kernels) against the CPU (plain twins) on the same weights (and
+     memory): logits, greedy tokens and exact launch counts;
   6. ``[grad]``: flash attention under grad (``FlashAttentionFn``): one
      kernel launch per forward, the kernel's own output, and dq/dk/dv
      against autograd through the plain twin on the card; the same for
@@ -65,8 +80,9 @@ Phases, each of which exits non-zero when it fails:
      and greedy tokens equal those of the in-memory params;
   9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
      the same parameters and batches, 1 and 2 microbatches, for stablelm
-     (AdamW and Adafactor), mixtral, rwkv6, jamba with experts and deepseek
-     (MLA, the dense prefix and MTP, with ``mtp_ce``) (AdamW):
+     (AdamW and Adafactor), mixtral, rwkv6, jamba with experts, deepseek
+     (MLA, the dense prefix and MTP, with ``mtp_ce``) and seamless (AdamW),
+     and llama-vision (Adafactor):
      loss, grad norm and parameters at each case's bar in
      ``TRAIN_CROSS_CASES``, and exact launch counts on the card;
  10. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
@@ -90,8 +106,10 @@ Phases, each of which exits non-zero when it fails:
  13. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
-     mixtral's window of 4,096 over 4,352 tokens and at MLA's prefill,
-     head dim 192 with V padded from 128; the Mamba scan also
+     mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
+     head dim 192 with V padded from 128, and at llama-vision's and
+     seamless's cross-attention and seamless's encoder, bidirectional;
+     the Mamba scan also
      beside the least time of its exponentials on the special-function
      unit).
 The last line is the JSON result; the line before it lists the kernels,
@@ -173,6 +191,38 @@ FLASH_CASES = [
     (2, 160, 128, 128, 192, 0, 128, torch.float32, 2e-5, 1e-4, "MLA D=192 f32, S=160"),
     (2, 72, 4, 4, 24, 0, 16, torch.float32, 2e-5, 1e-4, "deepseek smoke D=24 f32"),
     (2, 72, 4, 4, 24, 0, 16, torch.bfloat16, 3e-2, 3e-2, "deepseek smoke D=24 bf16"),
+]
+# B1 with k/v of a length of their own (cross-attention), and bidirectional
+# at seamless's encoder shape: (B, S_q, S_kv, H, KV, D, dtype, atol, rtol,
+# label). llama-3.2-vision cross-attends from the text to 1,601 image
+# patches (GQA group 4, D = 128), seamless from the text to its encoder's
+# 1,000 frames (group 1, D = 64): both ragged against the 64-row tile, S_q
+# below and above S_kv. Rows of a thousand keys and more average their
+# values down to about 0.03, so bf16 is held there at mixtral's bar, and the
+# twin without the last 64 keys must fail it.
+XATTN_CASES = [
+    (4, 300, 1601, 32, 8, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "llama-vision cross S_q=300, S_kv=1601"),
+    (4, 200, 1601, 32, 8, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "llama-vision cross S_q=200, S_kv=1601"),
+    (1, 2048, 1601, 32, 8, 128, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "S_q=2048 > S_kv=1601, group 4"),
+    (4, 300, 1000, 16, 16, 64, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "seamless cross S_q=300, S_kv=1000"),
+    (2, 1601, 1000, 16, 16, 64, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "S_q=1601 > S_kv=1000, group 1"),
+    (4, 1000, 1000, 16, 16, 64, torch.bfloat16, MIXTRAL_BF16_ATOL, MIXTRAL_BF16_RTOL,
+     "seamless encoder S=1000, bidirectional"),
+    (2, 1000, 300, 16, 16, 64, torch.bfloat16, 3e-2, 3e-2, "S_q=1000 > S_kv=300, group 1"),
+    (2, 300, 1601, 32, 8, 128, torch.float32, 2e-5, 1e-4, "llama-vision cross f32"),
+    (2, 300, 1000, 16, 16, 64, torch.float32, 2e-5, 1e-4, "seamless cross f32"),
+    (1, 1601, 1000, 8, 2, 64, torch.float32, 2e-5, 1e-4, "S_q=1601 > S_kv=1000 f32, group 4"),
+    # the smoke configs of [cross] (T = 72; 17 patches, 40 frames) and
+    # [train-cross] (T = 64; 17 patches, 64 frames), f32, D = 16
+    (2, 72, 17, 4, 2, 16, torch.float32, 2e-5, 1e-4, "llama-vision smoke cross f32"),
+    (2, 72, 40, 4, 4, 16, torch.float32, 2e-5, 1e-4, "seamless smoke cross f32"),
+    (2, 40, 40, 4, 4, 16, torch.float32, 2e-5, 1e-4, "seamless smoke encoder f32"),
+    (4, 64, 17, 4, 2, 16, torch.float32, 2e-5, 1e-4, "llama-vision smoke train cross f32"),
 ]
 # (S, D, dtype, atol, rtol): bidirectional, ragged S, GQA group 2
 BIDIR_CASES = [
@@ -272,6 +322,12 @@ TRAIN_CROSS_CASES = [
     ("rwkv6-7b", "smoke", ("adamw",), (WKV_ATOL, WKV_RTOL), "rwkv"),
     ("jamba-1.5-large-398b", "smoke", ("adamw",), (MAMBA_ATOL, MAMBA_RTOL), "jamba"),
     ("deepseek-v3-671b", "smoke", ("adamw",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), None),
+    # gates at GATE; llama-vision under Adafactor, whose factored second
+    # moment does not blow a near-zero gradient's rounding up to a step of
+    # lr as AdamW's elementwise m / sqrt(v) can (tests/test_torch_encdec_model.py)
+    ("llama-3.2-vision-11b", "smoke", ("adafactor",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL),
+     "gates"),
+    ("seamless-m4t-large-v2", "smoke", ("adamw",), (TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL), "gates"),
 ]
 # mixtral half-depth: 16 layers of [attention (window 4096) + 8 experts]
 MIXTRAL_PER_PREFILL = {"flash_attention": 16}
@@ -288,6 +344,36 @@ DEEPSEEK_PARAMS = 26_952_316_928
 # relative; the absorbed decode was 6.1e-5 (one bf16 step) away.
 MLA_ABSORB_ATOL, MLA_ABSORB_RTOL = 1e-4, 1e-2
 MLA_ABSORB_BATCH, MLA_ABSORB_PROMPT = 4, 300
+# The cross-attending configs. Every tanh gate starts at 0, where the memory
+# reaches nothing; every phase sets it to GATE in the weights it runs.
+GATE = 1.0
+SERVE_MEMORY_LEN = 1000  # seamless: source frames a request (max_src_len 4096)
+# B1's timing rows at the new serving shapes: (label, (B, S_q, H, KV, D), S_kv)
+XATTN_TIMING_SHAPES = [
+    ("llama-vision cross S_q=300, S_kv=1601", (4, 300, 32, 8, 128), 1601),
+    ("seamless encoder S=1000, bidirectional", (4, 1000, 16, 16, 64), 1000),
+    ("seamless cross S_q=300, S_kv=1000", (4, 300, 16, 16, 64), 1000),
+]
+# llama-3.2-vision full: 8 groups of [cross-attention + 4 x attention], so
+# B1 32 causal + 8 cross (S_kv = 1,601 patches) a prefill
+VISION_PER_PREFILL = {"flash_attention": 40}
+VISION_PARAMS = 9_729_019_912
+# seamless-m4t-large-v2 full: 24 bidirectional encoder layers, then 24 decoder
+# layers of [self-attention + cross-attention]: B1 72 a prefill
+SEAMLESS_PER_PREFILL = {"flash_attention": 72}
+SEAMLESS_PARAMS = 1_633_304_600
+# [xattn-decode]: B=1, a 300-token prompt with its memory, 16 decode steps
+# held to the forward, with the forward on another request's memory as the
+# control. In bf16 they round apart: decode's cross- and self-attention take
+# bf16 scores in plain torch (as the reference decodes), the forward B1's
+# float32 scores. On an H100, 16 steps were 6.2e-2 to 1.0e-1 (rms 1.4e-2 to
+# 2.0e-2) from the forward, while seamless's control was only 0.20 to 0.24
+# off (rms 4.5e-2); a float32 copy of the same weights was within 1.8e-5
+# (llama-vision) and 1.1e-5 (seamless), its control 0.17 to 1.8 off. So the
+# bar holds the float32 copy, atol 1e-4, rtol 1e-4, and the bf16 distances
+# are printed beside it.
+XATTN_DECODE_PROMPT = 300
+XATTN_DECODE_ATOL, XATTN_DECODE_RTOL = 1e-4, 1e-4
 
 
 def check(ok: bool, msg: str) -> None:
@@ -297,14 +383,14 @@ def check(ok: bool, msg: str) -> None:
 
 def plain_bshd(q, k, v, causal, window, block_k):
     """The plain twin on the model-facing layout, as ops.flash_attention
-    reshapes for the kernel."""
+    reshapes for the kernel (k and v may have a length of their own)."""
     from repro_torch.kernels import flash_attention as fa
 
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    s_kv, kv = k.shape[1], k.shape[2]
     out = fa.flash_attention_plain(
-        q.transpose(1, 2).reshape(b * h, s, d), k.transpose(1, 2).reshape(b * kv, s, d),
-        v.transpose(1, 2).reshape(b * kv, s, d), group=h // kv, causal=causal,
+        q.transpose(1, 2).reshape(b * h, s, d), k.transpose(1, 2).reshape(b * kv, s_kv, d),
+        v.transpose(1, 2).reshape(b * kv, s_kv, d), group=h // kv, causal=causal,
         window=window, block_k=block_k,
     )
     return out.reshape(b, h, s, d).transpose(1, 2)
@@ -462,6 +548,29 @@ def phase_kernel_cases() -> float:
         print(f"[kernel] bidirectional S={s} D={d} GQA group 2 {str(dtype).split('.')[-1]} "
               f"max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
         check(ok, f"bidirectional case S={s} D={d} {dtype} disagrees")
+    for b, sq, skv, h, kv, d, dtype, atol, rtol, label in XATTN_CASES:
+        q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, skv, kv, d), generator=gen, device="cuda").to(dtype)
+                for _ in range(2))
+        out = ops.flash_attention(q, k, v, causal=False)
+        ref = plain_bshd(q, k, v, False, 0, 128)
+        torch.cuda.synchronize()
+        check(out.dtype == dtype and out.shape == q.shape,
+              f"{label}: {out.dtype} {tuple(out.shape)}")
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = bool(torch.isfinite(out.float()).all()) and torch.allclose(
+            out.float(), ref.float(), atol=atol, rtol=rtol)
+        print(f"[kernel] {label}: B={b} S_q={sq} S_kv={skv} H={h} KV={kv} D={d} bidirectional "
+              f"{str(dtype).split('.')[-1]} max_abs_err={err:.3e} (atol {atol}, rtol {rtol}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"kernel disagrees with its plain twin: {label}")
+        if dtype == torch.bfloat16 and skv >= 1000:  # the bar must see the last keys
+            short = plain_bshd(q, k[:, :-64], v[:, :-64], False, 0, 128).float()
+            seen = not torch.allclose(short, ref.float(), atol=atol, rtol=rtol)
+            print(f"[kernel] {label}: the twin without the last 64 keys is off by "
+                  f"{(short - ref.float()).abs().max().item():.3e}, "
+                  f"{'outside the bar: ok' if seen else 'within the bar: FAIL'}")
+            check(seen, f"{label}: the twin without the last 64 keys passes the bar")
     return worst_bf16
 
 
@@ -569,17 +678,82 @@ def phase_mamba_cases() -> float:
     return worst
 
 
+def memory_of(cfg, frames: int = SERVE_MEMORY_LEN) -> tuple[str, int, int] | None:
+    """The memory a cross-attending config reads, as ``generate``'s extras
+    key, its length and its width (``frames`` source frames for seamless,
+    whose frontend is a stub); None for any other config."""
+    if cfg.cross_attn_every > 0:
+        return "image_embeds", cfg.num_patches, cfg.vision_embed_dim
+    if cfg.is_encdec:
+        return "src_frames", frames, cfg.audio_embed_dim
+    return None
+
+
+def request_memories(cfg, requests: list[dict], seed: int) -> dict[str, torch.Tensor]:
+    """Each request's own memory (float32 on the card, drawn from ``seed``
+    plus its index), by request id."""
+    key, m, w = memory_of(cfg)
+    return {r["request_id"]: torch.randn(
+        (m, w), generator=torch.Generator(device="cuda").manual_seed(seed + i), device="cuda")
+        for i, r in enumerate(requests)}
+
+
+def set_gates(params: dict, value: float) -> int:
+    """Every cross-attention's tanh ``gate`` (0 at init, so the memory would
+    reach nothing) set to ``value`` in place; returns how many layers."""
+    n = 0
+    for key, val in params.items():
+        if key == "gate":
+            val.fill_(value)
+            n += val.shape[0] if val.ndim > 1 else 1
+        elif isinstance(val, dict):
+            n += set_gates(val, value)
+    return n
+
+
+def make_server(engine, memories: dict[str, torch.Tensor] | None):
+    """``serve(requests, batch_size)`` -> (tokens per request, wall seconds
+    per batch after the device is done): through the generator's batch
+    handler into an in-memory CFS, or, for a config with a memory, through
+    ``engine.generate(..., extras=...)`` with the batch's memories stacked,
+    since the batch handler passes none (ROADMAP C19)."""
+    from repro_torch.launch.serve import serve as serve_handler
+    from repro_torch.runtime.store import MemoryStore
+    from repro_torch.serve.batcher import pad_prompts, result_tokens
+
+    if memories is None:
+        def serve(requests, batch_size):
+            sink = MemoryStore()
+            seconds = serve_handler(engine, requests, batch_size, sink)
+            return [result_tokens(sink, "serve", r["request_id"]) for r in requests], seconds
+        return serve
+    key = memory_of(engine.cfg)[0]
+
+    def serve(requests, batch_size):
+        outs, seconds = [], []
+        for i in range(0, len(requests), batch_size):
+            batch = requests[i : i + batch_size]
+            t0 = time.perf_counter()
+            extras = {key: torch.stack([memories[r["request_id"]] for r in batch])}
+            outs += engine.generate(pad_prompts(batch), max_new_tokens=NEW_TOKENS,
+                                    extras=extras).tolist()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+        return outs, seconds
+    return serve
+
+
 def phase_slice(arch: str, variant: str, prompt_lens: list[int],
                 per_prefill: dict[str, int], after=None) -> tuple[dict, dict]:
     """Serve ``arch`` at a real size; in the first run every kernel of
     ``kernel_modules()`` must launch ``per_prefill[name]`` times per prefill
-    (0 for a kernel not named). ``after(engine, requests, served, tag)``,
-    when given, runs on the same engine before it is freed and returns
-    more stats with its launch counts under ``"launches"``. Returns the
-    launch counts and the stats."""
-    from repro_torch.launch.serve import build_engine, make_requests, serve
-    from repro_torch.runtime.store import MemoryStore
-    from repro_torch.serve.batcher import result_tokens
+    (0 for a kernel not named). A config with a memory (``memory_of``) gets
+    every gate set to ``GATE`` and each request a seeded memory of its own,
+    and is served through ``generate`` (``make_server``).
+    ``after(engine, requests, served, tag)``, when given, runs on the same
+    engine before it is freed and returns more stats with its launch
+    counts under ``"launches"``. Returns the launch counts and the stats."""
+    from repro_torch.launch.serve import build_engine, make_requests
     from repro_torch.models import count_params, model_spec
 
     tag = f"[slice {arch}]"
@@ -593,16 +767,25 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
           f"vocab {cfg.vocab_size}, {count_params(model_spec(cfg))} params in "
           f"{cfg.param_dtype}, built in {time.perf_counter() - t0:.1f} s")
     requests = make_requests(prompt_lens, cfg.vocab_size, NEW_TOKENS, seed=1)
+    memories = None
+    if memory_of(cfg) is not None:
+        key, m, w = memory_of(cfg)
+        n_gates = set_gates(engine.params, GATE)
+        memories = request_memories(cfg, requests, seed=100)
+        print(f"{tag} every cross-attention gate set to {GATE} (tanh {math.tanh(GATE):.3f}; "
+              f"{n_gates} layers; 0 at init, where the memory reaches nothing); each request's "
+              f"own seeded {key} of ({m}, {w}); served through generate(..., extras=...), "
+              f"not the batch handler (C19)")
+    serve = make_server(engine, memories)
     torch.cuda.reset_peak_memory_stats()
 
     runs = []
     for run in range(2):
-        sink = MemoryStore()
         batches_before = engine.stats["batches"]
         if run == 0:
             for mod in mods.values():
                 mod.launches = 0
-        seconds = serve(engine, requests, 4, sink)
+        outs, seconds = serve(requests, 4)
         if run == 0:
             counts = {name: mod.launches for name, mod in mods.items()}
             prefills = engine.stats["batches"] - batches_before
@@ -611,7 +794,6 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
                   f"({cfg.num_layers} layers; want {want})")
             check(prefills > 0 and counts == want,
                   f"kernel launches {counts} on the {arch} path, want {want}")
-        outs = [result_tokens(sink, "serve", r["request_id"]) for r in requests]
         for o in outs:
             check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
                   f"bad output {o}")
@@ -626,10 +808,10 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
     stats = {"requests": len(requests), "tokens": len(requests) * NEW_TOKENS,
              "batch_s": runs[1][1], "tokens_per_s": len(requests) * NEW_TOKENS / sum(runs[1][1]),
              "peak_bytes": peak}
-    stats.update(breakdown(engine, requests[:4], tag))
+    stats.update(breakdown(engine, requests[:4], tag, serve, memories))
     if after is not None:
         stats.update(after(engine, requests, runs[0][0], tag))
-    del engine
+    del engine, serve  # the server holds the engine: free both before the cache
     torch.cuda.empty_cache()
     return counts, stats
 
@@ -942,21 +1124,146 @@ def phase_mixtral_swa(engine) -> tuple[dict, dict]:
                    "dropped_forward_max": max(fwd_drops), "launches": counts}
 
 
-def breakdown(engine, requests: list[dict], tag: str) -> dict:
+def xattn_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
+    """A cross-attending slice at every published width and depth: its
+    param count, then ``phase_xattn_decode``."""
+    from repro_torch.models import count_params, model_spec
+
+    want = {"llama-3.2-vision-11b": VISION_PARAMS,
+            "seamless-m4t-large-v2": SEAMLESS_PARAMS}[engine.cfg.name]
+    n_params = count_params(model_spec(engine.cfg))
+    check(n_params == want, f"{n_params} params, want {want}")
+    counts, stats = phase_xattn_decode(engine)
+    return {"xattn_decode": stats, "launches": counts}
+
+
+def xattn_decode_run(params: dict, cfg) -> dict:
+    """B=1, a seeded prompt of ``XATTN_DECODE_PROMPT`` tokens plus 16, with
+    its own seeded memory: the forward over all of them, a prefill of the
+    prompt, 16 teacher-forced decode steps (the cross-attention reads the
+    cached memory K/V in plain torch), and the forward on another request's
+    memory. Returns, for the prefill's last and each decode step, the
+    largest and the rms distance to the forward's logits and (decode steps)
+    to the other memory's, the logits' largest magnitude, and each run's
+    launches."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    mods = kernel_modules()
+    s, n = XATTN_DECODE_PROMPT, NEW_TOKENS
+    key = memory_of(cfg)[0]
+    tokens = torch.randint(0, cfg.vocab_size, (1, s + n),
+                           generator=torch.Generator().manual_seed(9)).cuda()
+    mem, other = (request_memories(cfg, [{"request_id": i}], seed)[i][None]
+                  for i, seed in ((0, 200), (1, 300)))
+    counts = {}
+    with torch.inference_mode():
+        zero_launches(mods)
+        logits, _ = forward(params, cfg, {"tokens": tokens, key: mem})
+        counts["forward"] = {name: mod.launches for name, mod in mods.items()}
+        zero_launches(mods)
+        last, cache = prefill(params, cfg, {"tokens": tokens[:, :s], key: mem}, s + n)
+        counts["prefill"] = {name: mod.launches for name, mod in mods.items()}
+        zero_launches(mods)
+        steps = [(last[:, 0], s - 1)]
+        for pos in range(s, s + n):
+            dl, cache = decode_step(params, cfg, tokens[:, pos : pos + 1], cache, pos)
+            steps.append((dl[:, 0], pos))
+        counts["decode"] = {name: mod.launches for name, mod in mods.items()}
+        zero_launches(mods)
+        moved, _ = forward(params, cfg, {"tokens": tokens, key: other})
+        counts["control"] = {name: mod.launches for name, mod in mods.items()}
+    out = {"max": [], "rms": [], "ctrl_max": [], "ctrl_rms": [], "got": [], "want": [],
+           "ctrl": [], "logits_max": logits[:, s - 1 :].float().abs().max().item(),
+           "launches": counts}
+    for got, pos in steps:
+        got, want, ctrl = got.float(), logits[:, pos].float(), moved[:, pos].float()
+        out["max"].append((got - want).abs().max().item())
+        out["rms"].append((got - want).pow(2).mean().sqrt().item())
+        out["got"].append(got)
+        out["want"].append(want)
+        if pos >= s:
+            out["ctrl_max"].append((got - ctrl).abs().max().item())
+            out["ctrl_rms"].append((got - ctrl).pow(2).mean().sqrt().item())
+            out["ctrl"].append(ctrl)
+    return out
+
+
+def phase_xattn_decode(engine) -> tuple[dict, dict]:
+    """[xattn-decode]: ``xattn_decode_run`` at full width with every gate at
+    ``GATE``, first on the served bf16 weights, then on a float32 copy of
+    them. In float32 each step's logits (and the prefill's last) are held to
+    the forward's at ``XATTN_DECODE_ATOL``/``RTOL``, and, as a control, the
+    forward on another request's memory must fall outside that bar at every
+    step: the memory reaches the logits through the gates, and the bar sees
+    it. In bf16 the distances are printed beside the control's (decode's
+    bf16 scores and B1's float32 scores round apart, by about as much as
+    another memory moves seamless's logits). B1 launches a prefill's count
+    in each forward and in the prefill, never in decode."""
+    from repro_torch.tree import map_leaves
+
+    cfg = engine.cfg
+    tag = f"[xattn-decode] {cfg.name}"
+    mods = kernel_modules()
+    key, m, w = memory_of(cfg)
+    head = (f"{tag} B=1, prompt {XATTN_DECODE_PROMPT}, {key} ({m}, {w}), gates {GATE}: the "
+            f"prefill's last and {NEW_TOKENS} decode steps vs the forward")
+    bf16 = xattn_decode_run(engine.params, cfg)
+    print(f"{head}, bf16 (no bar): max_abs_err {max(bf16['max']):.3e}, rms "
+          f"{min(bf16['rms'][1:]):.3e} to {max(bf16['rms'][1:]):.3e} a step; the forward on "
+          f"another memory: max {min(bf16['ctrl_max']):.3e} to {max(bf16['ctrl_max']):.3e}, rms "
+          f"{min(bf16['ctrl_rms']):.3e} to {max(bf16['ctrl_rms']):.3e}; |logits| up to "
+          f"{bf16['logits_max']:.3e}")
+    params32 = map_leaves(lambda t: t.float(), engine.params)
+    f32 = xattn_decode_run(params32, cfg.copy(param_dtype="float32", compute_dtype="float32"))
+    del params32
+    torch.cuda.empty_cache()
+    bar = dict(atol=XATTN_DECODE_ATOL, rtol=XATTN_DECODE_RTOL)
+    for i, (got, want) in enumerate(zip(f32["got"], f32["want"])):
+        ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want, **bar)
+        check(ok, f"{tag} float32 step {i}: max_abs_err {f32['max'][i]:.3e} outside atol "
+              f"{XATTN_DECODE_ATOL}, rtol {XATTN_DECODE_RTOL}")
+    outside = sum(not torch.allclose(got, ctrl, **bar)
+                  for got, ctrl in zip(f32["got"][1:], f32["ctrl"]))
+    print(f"{head}, float32 copy: max_abs_err {max(f32['max']):.3e} (per step "
+          f"{' '.join(f'{e:.2e}' for e in f32['max'])}; atol {XATTN_DECODE_ATOL}, rtol "
+          f"{XATTN_DECODE_RTOL}; |logits| up to {f32['logits_max']:.3e}) ok")
+    print(f"{tag} control, the float32 forward on another request's memory: off by "
+          f"{min(f32['ctrl_max']):.3e} to {max(f32['ctrl_max']):.3e}, outside the bar at "
+          f"{outside} of {NEW_TOKENS} steps {'ok' if outside == NEW_TOKENS else 'FAIL'}")
+    check(outside == NEW_TOKENS, "the forward on another memory passes the bar: the phase "
+          "cannot see the memory")
+    per = {"llama-3.2-vision-11b": VISION_PER_PREFILL,
+           "seamless-m4t-large-v2": SEAMLESS_PER_PREFILL}[cfg.name]
+    want = {phase: {name: 0 if phase == "decode" else per.get(name, 0) for name in mods}
+            for phase in f32["launches"]}
+    for run in (bf16, f32):
+        check(run["launches"] == want, f"{tag} launches {run['launches']}, want {want}")
+    print(f"{tag} launches in each of the two runs {json.dumps(f32['launches'])}")
+    total = {name: sum(c[name] for run in (bf16, f32) for c in run["launches"].values())
+             for name in mods}
+    keep = ("max", "rms", "ctrl_max", "ctrl_rms", "logits_max")
+    return total, {"bf16": {k: bf16[k] for k in keep}, "float32": {k: f32[k] for k in keep},
+                   "launches": f32["launches"]}
+
+
+def breakdown(engine, requests: list[dict], tag: str, serve,
+              memories: dict[str, torch.Tensor] | None = None) -> dict:
     """Where one batch's time goes: prefill and decode wall times, then a
-    profiler window for the device's busy share and its top kernels."""
+    profiler window (over ``serve``, ``make_server``'s) for the device's
+    busy share and its top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.serve import serve
-    from repro_torch.runtime.store import MemoryStore
     from repro_torch.models import decode_step, prefill
     from repro_torch.serve.batcher import pad_prompts
 
     tokens = torch.as_tensor(pad_prompts(requests), dtype=torch.long, device="cuda")
+    batch = {"tokens": tokens}
+    if memories is not None:
+        batch[memory_of(engine.cfg)[0]] = torch.stack([memories[r["request_id"]] for r in requests])
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = prefill(engine.params, engine.cfg, {"tokens": tokens}, engine.max_len)
+        logits, cache = prefill(engine.params, engine.cfg, batch, engine.max_len)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tok = logits.argmax(-1)
@@ -971,7 +1278,7 @@ def breakdown(engine, requests: list[dict], tag: str) -> dict:
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(engine, requests, len(requests), MemoryStore())
+        serve(requests, len(requests))
         wall_s = time.perf_counter() - t0
     kernels = sorted(
         ((e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
@@ -1010,9 +1317,38 @@ def reseed_jamba(params: dict, gen: torch.Generator) -> None:
             mixer["d_skip"] = torch.rand(mixer["d_skip"].shape, generator=gen) + 0.5
 
 
-def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> None:
+def reseed_gates(params: dict, gen: torch.Generator) -> None:
+    """Every cross-attention gate at ``GATE`` (0 at init)."""
+    set_gates(params, GATE)
+
+
+def prefill_launches(cfg) -> dict[str, int]:
+    """Each kernel of ``kernel_modules()``'s launches in one forward or
+    prefill: one a layer of every stack (the dense prefix's and the
+    encoder's too), by its mixer, and two for seamless's decoder layers
+    (self- and cross-attention)."""
+    from repro_torch.models.model import encoder_layout, main_layout, prefix_layout
+
+    kernel_of = {"attn": {"flash_attention": 1}, "mla": {"flash_attention": 1},
+                 "xattn": {"flash_attention": 1}, "attn_x": {"flash_attention": 2},
+                 "rwkv": {"rwkv6_wkv": 1}, "mamba": {"mamba_scan": 1}}
+    out = {name: 0 for name in kernel_modules()}
+    stacks = [main_layout(cfg)] + ([prefix_layout(cfg)] if cfg.dense_prefix_layers else []) + (
+        [encoder_layout(cfg)] if cfg.is_encdec else [])
+    for layout in stacks:
+        for block in layout.group:
+            for name, n in kernel_of[block.mixer].items():
+                out[name] += n * layout.num_groups
+    return out
+
+
+def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> dict[str, int]:
     """A smoke config in f32 on the card (kernels) against the CPU (plain
-    twins), on the same weights: logits and greedy tokens."""
+    twins), on the same weights (and, for a config with a memory, the same
+    seeded memory: 17 patches, or 40 frames for seamless, gates at
+    ``GATE``): logits and greedy tokens; the card launches each kernel
+    ``prefill_launches`` times in the forward and again in generate's
+    prefill, never in its decode steps. Returns the launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params, model_spec
     from repro_torch.serve.engine import ServeEngine
@@ -1023,20 +1359,34 @@ def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> None:
     if reseed is not None:
         reseed(params, torch.Generator().manual_seed(4))
     tokens = torch.randint(0, cfg.vocab_size, (2, t), generator=torch.Generator().manual_seed(1))
+    extras = {}
+    if memory_of(cfg) is not None:
+        key, m, w = memory_of(cfg, frames=40)
+        extras[key] = torch.randn((2, m, w), generator=torch.Generator().manual_seed(2))
     on_cpu = ServeEngine(cfg, params, max_len=t + 24, device="cpu")
     on_gpu = ServeEngine(cfg, params, max_len=t + 24, device="cuda")
+    mods = kernel_modules()
     with torch.inference_mode():
-        lc, _ = forward(on_cpu.params, cfg, {"tokens": tokens})
-        lg, _ = forward(on_gpu.params, cfg, {"tokens": tokens.cuda()})
+        lc, _ = forward(on_cpu.params, cfg, {"tokens": tokens, **extras})
+        zero_launches(mods)
+        lg, _ = forward(on_gpu.params, cfg,
+                        {"tokens": tokens.cuda(), **{k: v.cuda() for k, v in extras.items()}})
+        counts = {name: mod.launches for name, mod in mods.items()}
     err = (lg.cpu() - lc).abs().max().item()
     ok = torch.allclose(lg.cpu(), lc, atol=5e-3, rtol=1e-3)
     print(f"[cross] {arch} {variant} f32, T={t}: logits cuda vs cpu max_abs_err={err:.3e} "
           f"(atol 5e-3, rtol 1e-3) {'ok' if ok else 'FAIL'}")
     check(ok, f"{arch} logits differ between the card and the CPU")
-    tc = on_cpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
-    tg = on_gpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS)
+    tc = on_cpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS, extras=extras)
+    zero_launches(mods)
+    tg = on_gpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS, extras=extras)
+    counts = {name: counts[name] + mod.launches for name, mod in mods.items()}
     print(f"[cross] {arch} greedy tokens identical: {(tc == tg).all()}")
     check((tc == tg).all(), f"{arch} greedy tokens differ between the card and the CPU")
+    want = {name: 2 * n for name, n in prefill_launches(cfg).items()}
+    print(f"[cross] {arch} launches on the card (forward and generate): {counts}")
+    check(counts == want, f"{arch} launches {counts}, want {want}")
+    return counts
 
 
 def wkv_bound(bh: int, t: int, dk: int, dv: int, chunk: int) -> tuple[float, int, float, int]:
@@ -1169,36 +1519,43 @@ def phase_mamba_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
 
 def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
                      plain_iters: int, window: int = 0, atol: float = 3e-2,
-                     rtol: float = 3e-2, v_width: int = 0) -> dict:
-    """B1 in bf16, causal (within ``window`` when it is > 0), at ``shape``
-    = (B, S, H, KV, D) on the kernel's (B*H, S, D) layout: kernel, plain
-    twin and SDPA (the same function on (B, H, S, D): GQA by
-    ``enable_gqa``; with a window, k and v repeated to H heads before the
-    timed call and the window as a boolean mask), beside the bound. Kernel
-    and SDPA are timed twice: by CUDA events over back-to-back calls, and
-    by their device time alone. With ``v_width`` > 0, v's columns from
-    ``v_width`` on are zero, as MLA pads V: the bound counts the padded
-    function's work, and the share of it that the padding adds is printed."""
+                     rtol: float = 3e-2, v_width: int = 0, s_kv: int = 0,
+                     causal: bool = True) -> dict:
+    """B1 in bf16, causal (within ``window`` when it is > 0) or
+    bidirectional, at ``shape`` = (B, S, H, KV, D) on the kernel's (B*H,
+    S, D) layout, k and v ``s_kv`` rows long when it is > 0 (cross-attention;
+    bidirectional): kernel, plain twin and SDPA (the same function on (B, H,
+    S, D): GQA by ``enable_gqa``; with a window, k and v repeated to H heads
+    before the timed call and the window as a boolean mask), beside the
+    bound. Kernel and SDPA are timed twice: by CUDA events over
+    back-to-back calls, and by their device time alone. With ``v_width`` >
+    0, v's columns from ``v_width`` on are zero, as MLA pads V: the bound
+    counts the padded function's work, and the share of it that the padding
+    adds is printed."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import causal_mask
 
     b, s, h, kv, d = shape
+    s_kv = s_kv or s
     q = torch.randn((b * h, s, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k, v = (torch.randn((b * kv, s, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn((b * kv, s_kv, d), generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     if v_width > 0:
         v[..., v_width:] = 0
     group = h // kv
-    opts = {"group": group, "causal": True, "window": window}
+    opts = {"group": group, "causal": causal, "window": window}
     out = fa.flash_attention_cuda(q, k, v, **opts)
     ref = fa.flash_attention_plain(q, k, v, **opts)
     err = (out.float() - ref.float()).abs().max().item()
     check(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol),
           f"flash timing shape {label} disagrees: {err} (atol {atol}, rtol {rtol})")
-    w = window if window > 0 else s
-    pairs = w * (w + 1) / 2 + (s - w) * w  # query i sees min(i + 1, window) keys
+    if causal:
+        w = window if window > 0 else s
+        pairs = w * (w + 1) / 2 + (s - w) * w  # query i sees min(i + 1, window) keys
+    else:
+        pairs = s * s_kv
     flops = 4 * b * h * d * pairs  # q.k and p.v over the visible pairs
-    nbytes = 2 * b * s * d * (2 * h + 2 * kv)  # q, k, v read once and o written once, bf16
+    nbytes = 2 * b * d * (2 * h * s + 2 * kv * s_kv)  # q, k, v read once and o written once, bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     padding = {}
     if v_width > 0:  # without the padding: p.v and v, o at v_width columns
@@ -1212,7 +1569,7 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
         lambda: fa.flash_attention_cuda(q, k, v, **opts), 3, 20, 50,
         max(t_ops, t_bytes), f"flash {label}")
     plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **opts), 1, plain_iters)
-    q4, k4, v4 = q.view(b, h, s, d), k.view(b, kv, s, d), v.view(b, kv, s, d)
+    q4, k4, v4 = q.view(b, h, s, d), k.view(b, kv, s_kv, d), v.view(b, kv, s_kv, d)
     if window > 0:
         k4, v4 = (t.repeat_interleave(group, dim=1) for t in (k4, v4))
         mask = causal_mask(s, s, window=window, device=q.device)
@@ -1221,12 +1578,13 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
         if window > 0:
             return torch.nn.functional.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
         return torch.nn.functional.scaled_dot_product_attention(
-            q4, k4, v4, is_causal=True, enable_gqa=group > 1)
+            q4, k4, v4, is_causal=causal, enable_gqa=group > 1)
 
     library_ms, library_dev = timed(sdpa, 3, 20, 50, max(t_ops, t_bytes), f"sdpa {label}",
                                     repeats=True)
-    print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 causal, window "
-          f"{window}: kernel {kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
+    kind = f"causal, window {window}" if causal else f"bidirectional, S_kv={s_kv}"
+    print(f"[time] flash {label}: B={b} S={s} H={h} KV={kv} D={d} bf16 {kind}: kernel "
+          f"{kernel_ms:.4f} ms (device {kernel_dev:.4f} ms), plain {plain_ms:.4f} ms, sdpa "
           f"{library_ms:.4f} ms (device {library_dev:.4f} ms); bound {max(t_ops, t_bytes):.4f} ms "
           f"({flops:.4g} ops -> {t_ops:.4f} ms, {nbytes} bytes -> {t_bytes:.4f} ms); "
           f"{flops / kernel_dev / 1e9:.1f} TFLOP/s on the device; max_abs_err {err:.3e}")
@@ -1248,6 +1606,9 @@ def phase_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
     serving["MLA prefill S=300, D=192"] = flash_timing_row(
         "MLA prefill S=300, D=192", (4, 300, MLA_HEADS, MLA_HEADS, MLA_HEAD_DIM), gen, 5,
         atol=MIXTRAL_BF16_ATOL, rtol=MIXTRAL_BF16_RTOL, v_width=MLA_V_DIM)
+    for label, shape, s_kv in XATTN_TIMING_SHAPES:
+        serving[label] = flash_timing_row(label, shape, gen, 5, atol=MIXTRAL_BF16_ATOL,
+                                          rtol=MIXTRAL_BF16_RTOL, s_kv=s_kv, causal=False)
     return {
         "name": "flash_attention",
         "route": "cuda",
@@ -1665,20 +2026,12 @@ def phase_continuum_process() -> dict:
 
 def train_launches(cfg) -> dict[str, int]:
     """Each kernel of ``kernel_modules()``'s launches in one microbatch of
-    a training step: each layer of a stack (the dense prefix's too) in the
-    forward and in its remat recomputation, and the MTP block's once (the
-    reference does not rematerialise it)."""
-    from repro_torch.models.model import decoder_layout, mixer_of, prefix_layout
-
-    kernel_of = {"attn": "flash_attention", "mla": "flash_attention", "rwkv": "rwkv6_wkv",
-                 "mamba": "mamba_scan"}
-    out = {name: 0 for name in kernel_modules()}
-    stacks = [decoder_layout(cfg)] + ([prefix_layout(cfg)] if cfg.dense_prefix_layers else [])
-    for layout in stacks:
-        for block in layout.group:
-            out[kernel_of[block.mixer]] += 2 * layout.num_groups
+    a training step: a forward's (``prefill_launches``) and its remat
+    recomputation's, and the MTP block's once (the reference does not
+    rematerialise it)."""
+    out = {name: 2 * n for name, n in prefill_launches(cfg).items()}
     if cfg.mtp_depth > 0:
-        out[kernel_of[mixer_of(cfg)]] += 1
+        out["flash_attention"] += 1  # MLA
     return out
 
 
@@ -1696,7 +2049,7 @@ def phase_train_cross() -> dict:
     from repro_torch.tree import leaves_with_names, map_leaves
 
     mods = kernel_modules()
-    reseeds = {"rwkv": reseed_rwkv, "jamba": reseed_jamba}
+    reseeds = {"rwkv": reseed_rwkv, "jamba": reseed_jamba, "gates": reseed_gates}
     out, launches = {}, {}
     for arch, variant, optimizers, (atol, rtol), reseed in TRAIN_CROSS_CASES:
         tag = f"[train-cross] {arch} {variant}"
@@ -2154,6 +2507,12 @@ def main() -> int:
     deepseek_counts, deepseek_stats = phase_slice("deepseek-v3-671b", "two-moe", PROMPT_LENS,
                                                   DEEPSEEK_PER_PREFILL, after=deepseek_checks)
     absorb_counts = deepseek_stats.pop("launches")
+    vision_counts, vision_stats = phase_slice("llama-3.2-vision-11b", "full", PROMPT_LENS,
+                                              VISION_PER_PREFILL, after=xattn_checks)
+    vision_check_counts = vision_stats.pop("launches")
+    seamless_counts, seamless_stats = phase_slice("seamless-m4t-large-v2", "full", PROMPT_LENS,
+                                                  SEAMLESS_PER_PREFILL, after=xattn_checks)
+    seamless_check_counts = seamless_stats.pop("launches")
     phase_cross_device("granite-3-8b", "smoke", 72)
     phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
     phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
@@ -2162,6 +2521,8 @@ def main() -> int:
     phase_cross_device("starcoder2-15b", "smoke", 72)
     phase_cross_device("qwen2.5-14b", "smoke", 72)
     phase_cross_device("deepseek-v3-671b", "smoke", 72)
+    cross_device_counts = {arch: phase_cross_device(arch, "smoke", 72, reseed_gates)
+                           for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2")}
     train_counts, train_stats = phase_train_full(grad_stats)
     continuum_counts = phase_continuum_process()
     cross_counts, cross_worst = phase_train_cross()
@@ -2185,6 +2546,11 @@ def main() -> int:
     paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b checks": swa_counts,
                   "deepseek-v3-671b two-moe": deepseek_counts,
                   "deepseek-v3-671b checks": absorb_counts,
+                  "llama-3.2-vision-11b full": vision_counts,
+                  "llama-3.2-vision-11b checks": vision_check_counts,
+                  "seamless-m4t-large-v2 full": seamless_counts,
+                  "seamless-m4t-large-v2 checks": seamless_check_counts,
+                  **{f"{arch} cross": c for arch, c in cross_device_counts.items()},
                   **{f"{arch} train-cross": c for arch, c in cross_counts.items()}})
     launches = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     print(f"[done] launches per path {json.dumps(paths)}; summed {json.dumps(launches)} "
@@ -2202,6 +2568,8 @@ def main() -> int:
           f"serving shapes {json.dumps(serving)}")
     print(f"[done] serving mixtral-8x7b half-depth {json.dumps(mixtral_stats)}")
     print(f"[done] serving deepseek-v3-671b two-moe {json.dumps(deepseek_stats)}")
+    print(f"[done] serving llama-3.2-vision-11b full {json.dumps(vision_stats)}")
+    print(f"[done] serving seamless-m4t-large-v2 full {json.dumps(seamless_stats)}")
     print(f"[done] training stablelm-3b {json.dumps(train_stats)}; flash attention at the training "
           f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
           f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's "

@@ -1,22 +1,23 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
-Only the architectures whose modules are ported are registered; any other
-id raises ``KeyError`` naming it as not yet ported. An arch module may add
-variants of its own in ``VARIANTS``: jamba's without experts, mixtral's
-``half-depth`` and deepseek's ``two-moe``, which fit one card.
+All ten of the reference's architectures are registered; any other id
+raises ``KeyError``. An arch module may add variants of its own in
+``VARIANTS``: jamba's without experts, mixtral's ``half-depth`` and
+deepseek's ``two-moe``, which fit one card.
 """
 
 from __future__ import annotations
 
 from . import (
-    deepseek_v3_671b, granite_3_8b, jamba_1_5_large_398b, mixtral_8x7b, qwen2_5_14b, rwkv6_7b,
-    stablelm_3b, starcoder2_15b,
+    deepseek_v3_671b, granite_3_8b, jamba_1_5_large_398b, llama_3_2_vision_11b, mixtral_8x7b,
+    qwen2_5_14b, rwkv6_7b, seamless_m4t_large_v2, stablelm_3b, starcoder2_15b,
 )
 from .base import ModelConfig, TrainConfig
 
 ARCHS: dict[str, object] = {
     m.ARCH_ID: m for m in (starcoder2_15b, qwen2_5_14b, stablelm_3b, granite_3_8b,
-                           jamba_1_5_large_398b, rwkv6_7b, mixtral_8x7b, deepseek_v3_671b)
+                           jamba_1_5_large_398b, rwkv6_7b, llama_3_2_vision_11b, mixtral_8x7b,
+                           deepseek_v3_671b, seamless_m4t_large_v2)  # the reference's order
 }
 ARCH_IDS: list[str] = list(ARCHS.keys())
 
@@ -26,7 +27,7 @@ def get_config(arch: str, variant: str = "full") -> ModelConfig:
     or one of the arch module's ``VARIANTS`` (e.g. jamba's ``no-moe``,
     mixtral's ``half-depth``, deepseek's ``two-moe``)."""
     if arch not in ARCHS:
-        raise KeyError(f"arch {arch!r} is not yet ported to repro_torch; ported: {ARCH_IDS}")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     mod = ARCHS[arch]
     if variant == "full":
         return mod.full()

@@ -1,8 +1,13 @@
-// Flash attention forward for Hopper (sm_90a): GQA, causal, sliding window.
+// Flash attention forward for Hopper (sm_90a): GQA, causal, sliding window,
+// and cross-attention (bidirectional, k/v of a length of their own).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py::_flash_kernel
 // (launched by flash_attention_bhsd). It computes the same function:
 //   o[i] = softmax(q[i] k[g]^T * D^-0.5, masked) v[g],  g = i / group,
+// over s_q query rows and s_kv kv rows; the Pallas body takes one length, and
+// the reference's cross-attention (q over the text, k/v over the image patches
+// or the encoder's frames) computes the same softmax in plain jnp. The causal
+// mask and the window need s_q == s_kv (the wrapper refuses them otherwise).
 // with the Pallas body's numerics: masked scores are -1e30 and their p is 0;
 // the running max, the running denominator and the output accumulator are
 // float32; the final divide clamps the denominator at 1e-30. Output has q's
@@ -52,8 +57,8 @@
 //     differ by about an ulp of float32, far below the bf16 rounding);
 //   * kv tiles that the causal or window mask hides entirely are skipped,
 //     and tiles that no mask touches skip the mask;
-//   * any S: rows past S are zero-filled by the copies, masked, and not
-//     stored.
+//   * any s_q and s_kv: rows past either are zero-filled by the copies; kv
+//     rows past s_kv are masked, q rows past s_q not stored.
 //
 // float32 design (the port's first kernel): one block of 256 threads per
 // 64-row q tile, scalar float32 FMAs from shared memory, each thread 4 query
@@ -119,8 +124,8 @@ __device__ __forceinline__ void stage_tile(uint32_t dst, bf16* sdst, const bf16*
 template <int KD>  // the head dim padded to 16 * KD
 __global__ void __launch_bounds__(TTHREADS)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o, int s, int d, int group,
-                      int causal, int window, float scale_log2, int vec) {
+                      const bf16* __restrict__ v, bf16* __restrict__ o, int s_q, int s_kv, int d,
+                      int group, int causal, int window, float scale_log2, int vec) {
   constexpr int DP = 16 * KD;
   constexpr int LD = DP + 8;  // row stride in elements: 16 bytes of padding
   constexpr int NT = DP / 8;  // output n-tiles of 8 columns
@@ -134,8 +139,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid & 31;
   const int bh = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * TBQ;
-  const bf16* qb = q + (size_t)bh * s * d;
-  const size_t kv_off = (size_t)(bh / group) * s * d;
+  const bf16* qb = q + (size_t)bh * s_q * d;
+  const size_t kv_off = (size_t)(bh / group) * s_kv * d;
   const bf16* kb = k + kv_off;
   const bf16* vb = v + kv_off;
 
@@ -150,7 +155,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // kv positions any row of this tile can see.
-  const int k_hi = causal ? min(s, q0 + TBQ) : s;
+  const int k_hi = causal ? min(s_kv, q0 + TBQ) : s_kv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int kt0 = k_lo / TBK;
   const int nkt = (k_hi - kt0 * TBK + TBK - 1) / TBK;
@@ -159,9 +164,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sk_addr = ptx::smem_addr(sk);
   const uint32_t sv_addr = ptx::smem_addr(sv);
   constexpr uint32_t TILE_BYTES = TBK * LD * sizeof(bf16);
-  stage_tile<KD, TBQ>(sq_addr, sq, qb + (size_t)q0 * d, s - q0, d, vec);
-  stage_tile<KD, TBK>(sk_addr, sk, kb + (size_t)kt0 * TBK * d, s - kt0 * TBK, d, vec);
-  stage_tile<KD, TBK>(sv_addr, sv, vb + (size_t)kt0 * TBK * d, s - kt0 * TBK, d, vec);
+  stage_tile<KD, TBQ>(sq_addr, sq, qb + (size_t)q0 * d, s_q - q0, d, vec);
+  stage_tile<KD, TBK>(sk_addr, sk, kb + (size_t)kt0 * TBK * d, s_kv - kt0 * TBK, d, vec);
+  stage_tile<KD, TBK>(sv_addr, sv, vb + (size_t)kt0 * TBK * d, s_kv - kt0 * TBK, d, vec);
   ptx::cp_async_commit();
 
   const int g = lane >> 2;  // this thread's rows: row_a and row_a + 8
@@ -191,9 +196,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (it + 1 < nkt) {
       const size_t next = (size_t)(k0 + TBK) * d;
       stage_tile<KD, TBK>(sk_addr + (buf ^ 1) * TILE_BYTES, sk + (buf ^ 1) * TBK * LD, kb + next,
-                          s - k0 - TBK, d, vec);
+                          s_kv - k0 - TBK, d, vec);
       stage_tile<KD, TBK>(sv_addr + (buf ^ 1) * TILE_BYTES, sv + (buf ^ 1) * TBK * LD, vb + next,
-                          s - k0 - TBK, d, vec);
+                          s_kv - k0 - TBK, d, vec);
       ptx::cp_async_commit();
     }
     const uint32_t kb_lane = k_lane + buf * TILE_BYTES;
@@ -221,7 +226,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // scale, mask, online softmax
-    const bool need_mask = k0 + TBK > s || (causal && k0 + TBK - 1 > q0) ||
+    const bool need_mask = k0 + TBK > s_kv || (causal && k0 + TBK - 1 > q0) ||
                            (window > 0 && k0 <= q0 + TBQ - 1 - window);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -231,7 +236,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (need_mask) {
           const int kp = k0 + j * 8 + tq * 2 + (e & 1);
           const int qp = row_a + (e >> 1) * 8;
-          const bool ok = kp < s && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+          const bool ok = kp < s_kv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
           x = ok ? x : NEG_INF;
         }
         sc[j][e] = x;
@@ -299,9 +304,9 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int qp = row_a + i * 8;
-    if (qp >= s) continue;
+    if (qp >= s_q) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);  // one division per row
-    bf16* orow = o + ((size_t)bh * s + qp) * d;
+    bf16* orow = o + ((size_t)bh * s_q + qp) * d;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = n * 8 + tq * 2;
@@ -318,16 +323,17 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int KD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
-                int group, int causal, int window, float scale, int vec, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int s_q, int s_kv,
+                int d, int group, int causal, int window, float scale, int vec,
+                cudaStream_t stream) {
   const size_t smem = (size_t)(TBQ + 4 * TBK) * (16 * KD + 8) * sizeof(bf16);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_bf16_kernel<KD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + TBQ - 1) / TBQ, bh);
+  const dim3 grid((s_q + TBQ - 1) / TBQ, bh);
   flash_fwd_bf16_kernel<KD><<<grid, TTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), s, d, group, causal, window, scale * LOG2E, vec);
+      static_cast<bf16*>(o), s_q, s_kv, d, group, causal, window, scale * LOG2E, vec);
   return (int)cudaGetLastError();
 }
 
@@ -356,8 +362,8 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
 template <int DC>  // output columns per thread: D <= 16 * DC
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, float* __restrict__ o, int s, int d, int group,
-                     int causal, int window, float scale) {
+                     const float* __restrict__ v, float* __restrict__ o, int s_q, int s_kv, int d,
+                     int group, int causal, int window, float scale) {
   extern __shared__ float smem[];
   const int ds = d | 1;  // odd row stride
   float* sq = smem;          // BQ x ds
@@ -369,9 +375,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x & 15;  // score / output column group
   const int ty = threadIdx.x >> 4;  // row group; its 16 threads share a half-warp
-  const size_t kv_off = (size_t)(bh / group) * s * d;
+  const size_t kv_off = (size_t)(bh / group) * s_kv * d;
 
-  load_tile(sq, q + ((size_t)bh * s + q0) * d, BQ, min(BQ, s - q0), d, ds);
+  load_tile(sq, q + ((size_t)bh * s_q + q0) * d, BQ, min(BQ, s_q - q0), d, ds);
 
   float m[TR], l[TR], acc[TR][DC];
 #pragma unroll
@@ -383,13 +389,13 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   // kv positions any row of this tile can see.
-  const int k_hi = causal ? min(s, q0 + BQ) : s;
+  const int k_hi = causal ? min(s_kv, q0 + BQ) : s_kv;
   const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
   const int nd = (d + 15) / 16;
 
   for (int k0 = (k_lo / BK) * BK; k0 < k_hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers are done
-    const int krows = min(BK, s - k0);
+    const int krows = min(BK, s_kv - k0);
     load_tile(sk, k + kv_off + (size_t)k0 * d, BK, krows, d, ds);
     load_tile(sv, v + kv_off + (size_t)k0 * d, BK, krows, d, ds);
     __syncthreads();
@@ -422,7 +428,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < TC; ++j) {
         const int kp = k0 + tx + 16 * j;
-        ok[j] = kp < s && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
+        ok[j] = kp < s_kv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window);
         sc[i][j] = ok[j] ? sc[i][j] * scale : NEG_INF;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -466,9 +472,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TR; ++i) {
     const int qp = q0 + ty + 16 * i;
-    if (qp >= s) continue;
+    if (qp >= s_q) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((size_t)bh * s + qp) * d;
+    float* orow = o + ((size_t)bh * s_q + qp) * d;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = tx + 16 * c;
@@ -478,16 +484,16 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DC>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s, int d,
-               int group, int causal, int window, float scale, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int s_q, int s_kv,
+               int d, int group, int causal, int window, float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)(BQ + 2 * BK) * (d | 1) + (size_t)BQ * PS) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32_kernel<DC>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((s + BQ - 1) / BQ, bh);
+  const dim3 grid((s_q + BQ - 1) / BQ, bh);
   flash_fwd_f32_kernel<DC><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), s, d, group, causal, window, scale);
+      static_cast<float*>(o), s_q, s_kv, d, group, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -495,33 +501,38 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 
 }  // namespace
 
-// q, o: (bh, s, d); k, v: (bh / group, s, d); all contiguous on one device.
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor cores).
-// Returns a cudaError_t (0 on success).
+// q, o: (bh, s_q, d); k, v: (bh / group, s_kv, d); all contiguous on one device.
+// causal and window need s_q == s_kv. dtype: 0 = float32 (scalar kernel),
+// 1 = bfloat16 (tensor cores). Returns a cudaError_t (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int bh, int s, int d, int group, int causal, int window,
-                                   float scale, int dtype, void* stream) {
-  if (d < 1 || d > DMAX || s < 1 || bh < 1 || group < 1 || bh % group != 0)
+                                   int bh, int s_q, int s_kv, int d, int group, int causal,
+                                   int window, float scale, int dtype, void* stream) {
+  if (d < 1 || d > DMAX || s_q < 1 || s_kv < 1 || bh < 1 || group < 1 || bh % group != 0 ||
+      ((causal || window > 0) && s_q != s_kv))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (d <= 128) return launch_f32<8>(q, k, v, o, bh, s, d, group, causal, window, scale, st);
-    return launch_f32<12>(q, k, v, o, bh, s, d, group, causal, window, scale, st);
+    if (d <= 128)
+      return launch_f32<8>(q, k, v, o, bh, s_q, s_kv, d, group, causal, window, scale, st);
+    return launch_f32<12>(q, k, v, o, bh, s_q, s_kv, d, group, causal, window, scale, st);
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+#define FLASH_BF16(KD) \
+  launch_bf16<KD>(q, k, v, o, bh, s_q, s_kv, d, group, causal, window, scale, vec, st)
   switch ((d + 15) / 16) {
-    case 1: return launch_bf16<1>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 2: return launch_bf16<2>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 3: return launch_bf16<3>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 4: return launch_bf16<4>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 5: return launch_bf16<5>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 6: return launch_bf16<6>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 7: return launch_bf16<7>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 8: return launch_bf16<8>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 9: return launch_bf16<9>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 10: return launch_bf16<10>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    case 11: return launch_bf16<11>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
-    default: return launch_bf16<12>(q, k, v, o, bh, s, d, group, causal, window, scale, vec, st);
+    case 1: return FLASH_BF16(1);
+    case 2: return FLASH_BF16(2);
+    case 3: return FLASH_BF16(3);
+    case 4: return FLASH_BF16(4);
+    case 5: return FLASH_BF16(5);
+    case 6: return FLASH_BF16(6);
+    case 7: return FLASH_BF16(7);
+    case 8: return FLASH_BF16(8);
+    case 9: return FLASH_BF16(9);
+    case 10: return FLASH_BF16(10);
+    case 11: return FLASH_BF16(11);
+    default: return FLASH_BF16(12);
   }
+#undef FLASH_BF16
 }

@@ -3,7 +3,11 @@
 Replaces the reference's Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py::_flash_kernel``. Two versions of
 one function on the (B·H, S, D) layout, query head ``i`` reading kv head
-``i // group``:
+``i // group``. q has S_q rows and k, v S_kv rows of their own: the
+reference's cross-attention (``gqa_scores_softmax_out`` over an image's
+patches or an encoder's frames) is the same softmax with S_kv != S_q, which
+the Pallas body does not take. The causal mask and the window need S_q ==
+S_kv; both versions refuse them otherwise.
 
 * ``flash_attention_cuda`` launches the hand-written CUDA C++ kernel in
   ``csrc/flash_attention.cu``, built by ``kernels.build`` (``nvcc`` for
@@ -48,10 +52,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 
 
+def _check_lengths(s_q: int, s_kv: int, causal: bool, window: int) -> None:
+    if s_q != s_kv and (causal or window > 0):
+        raise ValueError(f"S_q={s_q} != S_kv={s_kv} takes neither the causal mask nor a window")
+
+
 def flash_attention_plain(
-    q: torch.Tensor,  # (BH, S, D)
-    k: torch.Tensor,  # (BKV, S, D)
-    v: torch.Tensor,  # (BKV, S, D)
+    q: torch.Tensor,  # (BH, S_q, D)
+    k: torch.Tensor,  # (BKV, S_kv, D)
+    v: torch.Tensor,  # (BKV, S_kv, D)
     *,
     group: int,
     causal: bool = True,
@@ -61,6 +70,8 @@ def flash_attention_plain(
     """Plain-torch twin of the kernel: the Pallas body's online softmax,
     one kv block at a time, in float32; output in q's dtype."""
     bh, s, d = q.shape
+    s_kv = k.shape[1]
+    _check_lengths(s, s_kv, causal, window)
     scale = d**-0.5
     qf = q.float()
     kf = k.float().repeat_interleave(group, dim=0)
@@ -69,10 +80,10 @@ def flash_attention_plain(
     l = torch.zeros((bh, s, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((bh, s, d), dtype=torch.float32, device=q.device)
     q_pos = torch.arange(s, device=q.device)[:, None]
-    block_k = min(block_k, s)
-    for k0 in range(0, s, block_k):
+    block_k = min(block_k, s_kv)
+    for k0 in range(0, s_kv, block_k):
         kb, vb = kf[:, k0 : k0 + block_k], vf[:, k0 : k0 + block_k]
-        scores = torch.matmul(qf, kb.transpose(1, 2)) * scale  # (BH, S, Bk)
+        scores = torch.matmul(qf, kb.transpose(1, 2)) * scale  # (BH, S_q, Bk)
         k_pos = torch.arange(k0, k0 + kb.shape[1], device=q.device)[None, :]
         mask = torch.ones((s, kb.shape[1]), dtype=torch.bool, device=q.device)
         if causal:
@@ -105,7 +116,8 @@ def build() -> KernelBuild:
         fn = kb.lib.flash_attention_fwd
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q k v o
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh s d group
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # bh s_q s_kv d
+            ctypes.c_int,  # group
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,  # causal window scale dtype
             ctypes.c_void_p,  # stream
         ]
@@ -115,9 +127,9 @@ def build() -> KernelBuild:
 
 
 def flash_attention_cuda(
-    q: torch.Tensor,  # (BH, S, D) on a CUDA device
-    k: torch.Tensor,  # (BKV, S, D)
-    v: torch.Tensor,  # (BKV, S, D)
+    q: torch.Tensor,  # (BH, S_q, D) on a CUDA device
+    k: torch.Tensor,  # (BKV, S_kv, D)
+    v: torch.Tensor,  # (BKV, S_kv, D)
     *,
     group: int,
     causal: bool = True,
@@ -128,21 +140,23 @@ def flash_attention_cuda(
     if q.ndim != 3 or k.shape != v.shape or k.ndim != 3:
         raise ValueError(f"shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}: need (BH,S,D)")
     bh, s, d = q.shape
-    if not 1 <= d <= MAX_HEAD_DIM or s < 1 or bh > 65535:
-        raise ValueError(f"unsupported shape BH={bh} S={s} D={d} (D<=192, BH<=65535)")
+    s_kv = k.shape[1]
+    if not 1 <= d <= MAX_HEAD_DIM or s < 1 or s_kv < 1 or bh > 65535:
+        raise ValueError(f"unsupported shape BH={bh} S_q={s} S_kv={s_kv} D={d} (D<=192, BH<=65535)")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError("flash_attention_cuda needs q, k, v on one CUDA device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need all float32 or all bfloat16")
-    if group < 1 or k.shape[0] * group != bh or k.shape[1:] != (s, d):
+    if group < 1 or k.shape[0] * group != bh or k.shape[2] != d:
         raise ValueError(f"q {tuple(q.shape)} and kv {tuple(k.shape)} disagree for group {group}")
+    _check_lengths(s, s_kv, causal, window)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     fn = build().lib.flash_attention_fwd
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            bh, s, d, group, int(causal), int(window), d**-0.5, _DTYPE_CODES[q.dtype],
+            bh, s, s_kv, d, group, int(causal), int(window), d**-0.5, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
@@ -160,8 +174,10 @@ class FlashAttentionFn(torch.autograd.Function):
     through ``flash_attention_plain`` on detached inputs under
     ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it; the
     twin's GQA indexing (``repeat_interleave``) sums dk and dv over each
-    group of query heads. The reference trains on its differentiable XLA
-    path and has no backward kernel, so none is written here.
+    group of query heads. k and v may have a length of their own
+    (cross-attention), in the forward and the backward. The reference
+    trains on its differentiable XLA path and has no backward kernel, so
+    none is written here.
 
     In bfloat16 the kernel rounds the probabilities to bf16 before p·v (as
     the model-level reference does) while the twin keeps them in float32:

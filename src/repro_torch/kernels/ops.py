@@ -22,19 +22,19 @@ def _under_grad(*tensors: torch.Tensor) -> bool:
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KV, D)
+    q: torch.Tensor,  # (B, S_q, H, D)
+    k: torch.Tensor,  # (B, S_kv, KV, D): S_kv != S_q only without causal mask and window
     v: torch.Tensor,
     causal: bool = True,
     window: int = 0,
     block_k: int = 128,  # kv block of the plain twin; the kernel tiles on its own
 ) -> torch.Tensor:
     b, s, h, d = q.shape
-    kv = k.shape[2]
+    s_kv, kv = k.shape[1], k.shape[2]
     group = h // kv
     qf = q.transpose(1, 2).reshape(b * h, s, d)
-    kf = k.transpose(1, 2).reshape(b * kv, s, d)
-    vf = v.transpose(1, 2).reshape(b * kv, s, d)
+    kf = k.transpose(1, 2).reshape(b * kv, s_kv, d)
+    vf = v.transpose(1, 2).reshape(b * kv, s_kv, d)
     if qf.is_cuda and _under_grad(qf, kf, vf):
         out = fa.FlashAttentionFn.apply(qf, kf, vf, group, causal, window, block_k)
     elif qf.is_cuda:

@@ -9,6 +9,10 @@ each result into an in-memory CFS (``runtime.store.MemoryStore``).
 
 Weights are random, drawn from ``--seed``. The broker wiring (a torch
 executor registered with a Colonies server) is not ported yet.
+llama-3.2-vision-11b and seamless-m4t-large-v2 cross-attend to a memory
+the batch handler does not pass (as in the reference), so here they raise
+``ValueError`` naming it; serve them with ``ServeEngine.generate(...,
+extras=...)``.
 """
 
 from __future__ import annotations

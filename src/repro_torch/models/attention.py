@@ -1,13 +1,18 @@
-"""GQA / sliding-window attention with KV caching (dense branch).
+"""GQA / sliding-window / cross attention with KV caching.
 
 Port of the reference's ``models/attention.py``. Entry points:
-  * ``attn_fwd``    — full-sequence prefill forward
-  * ``attn_decode`` — single-token decode against a cache
+  * ``attn_fwd``       — full-sequence prefill forward
+  * ``cross_attn_fwd`` — attention over a memory (image patches, encoder
+    output), tanh-gated
+  * ``attn_decode``    — single-token decode against a cache
 
-``attn_fwd`` on a CUDA tensor always runs the hand-written flash kernel;
-on the CPU, ``cfg.use_pallas`` picks the kernel's plain twin (True) or the
-port of the chunked ``blockwise_attention`` (False), so each CPU path can
-be held against its JAX counterpart.
+``attn_fwd`` and ``cross_attn_fwd`` on a CUDA tensor always run the
+hand-written flash kernel (cross-attention bidirectional, with k/v of the
+memory's length). On the CPU, ``attn_fwd``'s ``cfg.use_pallas`` picks the
+kernel's plain twin (True) or the port of the chunked
+``blockwise_attention`` (False), so each CPU path can be held against its
+JAX counterpart; ``cross_attn_fwd`` follows the reference, which computes
+it with ``gqa_scores_softmax_out`` whatever ``use_pallas`` says.
 """
 
 from __future__ import annotations
@@ -82,10 +87,12 @@ def blockwise_attention(
     return torch.cat(outs, dim=1)
 
 
-def project_qkv(params: dict, x: torch.Tensor):
+def project_qkv(params: dict, x: torch.Tensor, mem: torch.Tensor | None = None):
+    """q from ``x``; k and v from ``mem`` when given (cross-attention), else from ``x``."""
+    src = x if mem is None else mem
     q = project_in(x, params["wq"])
-    k = project_in(x, params["wk"])
-    v = project_in(x, params["wv"])
+    k = project_in(src, params["wk"])
+    v = project_in(src, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -113,6 +120,34 @@ def attn_fwd(
     if return_cache:
         return y, make_cache_from_prefill(k, v, cfg)
     return y
+
+
+def gate_out(params: dict, y: torch.Tensor) -> torch.Tensor:
+    """The tanh-gated cross-attention residual: every cross-attention has a
+    ``gate`` (llama-3.2-vision's gating in the reference), which starts at
+    zero."""
+    return torch.tanh(params["gate"].to(y.dtype)) * y if "gate" in params else y
+
+
+def unmasked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Every query sees every key (cross-attention, the encoder): B1
+    bidirectional on a CUDA tensor, with k/v of their own length; on the
+    CPU the reference's ``gqa_scores_softmax_out``, which it uses whatever
+    ``use_pallas`` says."""
+    if q.is_cuda:
+        return ops.flash_attention(q, k, v, causal=False)
+    return gqa_scores_softmax_out(q, k, v, None)
+
+
+def cross_attn_fwd(
+    params: dict,
+    x: torch.Tensor,  # (B, S, d_model)
+    memory: torch.Tensor,  # (B, M, mem_dim)
+    cfg: ModelConfig,
+) -> torch.Tensor:
+    """Every query sees the whole memory: no mask, no RoPE."""
+    q, k, v = project_qkv(params, x, mem=memory)
+    return gate_out(params, project_out(unmasked_attention(q, k, v), params["wo"]))
 
 
 # ---------------------------------------------------------------------------

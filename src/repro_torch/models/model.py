@@ -1,9 +1,14 @@
 """Model assembly: forward, prefill and decode.
 
-Port of the reference's ``models/model.py`` for the ported layouts: dense
-decoder-only models (stablelm, granite, starcoder2, qwen2.5), a group of
+Port of the reference's ``models/model.py`` for all ten architectures:
+dense decoder-only models (stablelm, granite, starcoder2, qwen2.5), a group of
 one ``[attn + mlp]`` block; MoE models (mixtral), a group of one
-``[attn + moe]`` block; deepseek-v3, a group of one ``[mla + moe]`` block
+``[attn + moe]`` block; llama-3.2-vision, a group of one tanh-gated
+cross-attention block over the image embeddings (``xattn``) and
+``cross_attn_every - 1`` ``[attn + mlp]`` blocks; seamless-m4t, a
+bidirectional encoder stack over projected source frames (``_encode``)
+and a decoder of ``[attn + cross-attn + mlp]`` blocks (``attn_x``) over
+its output; deepseek-v3, a group of one ``[mla + moe]`` block
 behind a stack of ``dense_prefix_layers`` ``[mla + mlp]`` blocks
 (``prefix_layout`` under ``prefix_cfg``: the MLP ``prefix_d_ff`` wide, no
 experts), with a multi-token-prediction block (``mtp_logits``); RWKV-6, a
@@ -15,7 +20,10 @@ none without experts) tiled ``num_layers / hybrid_period`` times.
 Parameters keep the reference's stacked ``(num_groups, ...)`` leaves so
 converted weights map one to one; the groups run in a Python loop, the
 prefix stack's before the main stack's, each with a cache of its own
-(``prefix_layers``, ``layers``). Each MoE block's load-balance and z
+(``prefix_layers``, ``layers``); the memory the cross-attention reads
+(image embeddings or the encoder's output) is the cache's ``memory``, and
+each cross-attention block caches its K/V over it (``xk``, ``xv``), which
+decode reads and ``pad_cache`` never grows. Each MoE block's load-balance and z
 losses are summed over the blocks of a group, then over the groups, in
 the reference's order; the prefix has no experts and adds none. Under
 grad each group (the prefix's too; not the MTP block, as in the
@@ -44,7 +52,7 @@ from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
-from .layers import activate, apply_norm
+from .layers import activate, apply_norm, apply_rope
 
 # ---------------------------------------------------------------------------
 # Layouts
@@ -53,8 +61,9 @@ from .layers import activate, apply_norm
 
 @dataclass(frozen=True)
 class BlockDef:
-    mixer: str  # attn | mla | rwkv | mamba (the mixers ported so far)
+    mixer: str  # attn | attn_x | xattn | mla | rwkv | mamba
     mlp: str  # dense | moe | rwkv_cm
+    causal: bool = True  # False: the encoder's bidirectional attention
 
 
 @dataclass(frozen=True)
@@ -72,8 +81,9 @@ def mixer_of(cfg: ModelConfig) -> str:
 
 
 def decoder_layout(cfg: ModelConfig) -> Layout:
-    """The dense, MoE, MLA, RWKV and jamba cases of the reference's layout;
-    cross-attention and encoder-decoder models are not ported."""
+    """The reference's decoder layout. A dense decoder with experts on
+    every ``moe_every``-th block only (no config of either package has one)
+    is not ported."""
     moe_on = cfg.moe.num_experts > 0
     if cfg.family == "ssm":
         return Layout((BlockDef("rwkv", "rwkv_cm"),), cfg.num_layers)
@@ -84,11 +94,29 @@ def decoder_layout(cfg: ModelConfig) -> Layout:
             for i in range(cfg.hybrid_period)
         )
         return Layout(blocks, cfg.num_layers // cfg.hybrid_period)
-    if cfg.cross_attn_every > 0 or cfg.is_encdec or (moe_on and cfg.moe.moe_every > 1):
+    if cfg.cross_attn_every > 0:  # llama-3.2-vision: a cross-attention layer opens each group
+        blocks = (BlockDef("xattn", "dense"),) + (BlockDef("attn", "dense"),) * (
+            cfg.cross_attn_every - 1)
+        return Layout(blocks, cfg.num_layers // cfg.cross_attn_every)
+    if moe_on and cfg.moe.moe_every > 1:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE, MLA, RWKV-6 and jamba branches are ported to "
-            f"repro_torch (cross-attention and the encoder: ROADMAP A14)")
+            f"{cfg.name}: a dense decoder with experts on every {cfg.moe.moe_every}th block "
+            f"is not ported to repro_torch")
     return Layout((BlockDef(mixer_of(cfg), "moe" if moe_on else "dense"),), cfg.num_layers)
+
+
+def encoder_layout(cfg: ModelConfig) -> Layout:
+    return Layout((BlockDef("attn", "dense", causal=False),), cfg.encoder_layers)
+
+
+def decoder_with_cross_layout(cfg: ModelConfig) -> Layout:
+    """Seamless decoder: self-attn + cross-attn + mlp per layer."""
+    return Layout((BlockDef("attn_x", "dense"),), cfg.num_layers)
+
+
+def main_layout(cfg: ModelConfig) -> Layout:
+    """The stack ``params["groups"]`` holds."""
+    return decoder_with_cross_layout(cfg) if cfg.is_encdec else decoder_layout(cfg)
 
 
 def prefix_layout(cfg: ModelConfig) -> Layout:
@@ -116,14 +144,36 @@ def _mlp_fwd(mlp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return attn.matmul_promote(activate(gate, up, cfg.activation), mlp["w_out"])
 
 
+def _bidir_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The encoder's self-attention: RoPE (whatever ``cfg.use_rope`` says,
+    as the reference), no mask."""
+    q, k, v = attn.project_qkv(params, h)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return attn.project_out(attn.unmasked_attention(q, k, v), params["wo"])
+
+
+def _cross_cache(params: dict, memory: torch.Tensor) -> dict:
+    """K/V of the memory, which every decode step reads. Without ``bk``/``bv``,
+    as the reference builds them (ROADMAP C20)."""
+    return {"xk": attn.project_in(memory, params["wk"]),
+            "xv": attn.project_in(memory, params["wv"])}
+
+
 def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, return_cache: bool):
+               positions: torch.Tensor, return_cache: bool, memory: torch.Tensor | None = None):
     """Pre-norm residual block. Returns (x, aux or None, cache or None):
     an MoE block's aux holds its ``lb_loss`` and ``z_loss``; the cache
-    holds the mixer's leaves and, for the channel mix, ``{"cm": ...}``."""
+    holds the mixer's leaves (a cross-attention's ``xk``/``xv``) and, for
+    the channel mix, ``{"cm": ...}``."""
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
-    if bdef.mixer == "attn":
+    if bdef.mixer in ("attn", "attn_x") and not bdef.causal:  # the encoder: no decode cache
+        res = _bidir_attn(bp["mixer"], h, cfg, positions)
+    elif bdef.mixer in ("attn", "attn_x"):
         res = attn.attn_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
+    elif bdef.mixer == "xattn":
+        res = attn.cross_attn_fwd(bp["mixer"], h, memory, cfg)
+        res = (res, _cross_cache(bp["mixer"], memory)) if return_cache else res
     elif bdef.mixer == "mla":
         res = mla_mod.mla_fwd(bp["mixer"], h, cfg, positions, return_cache=return_cache)
     elif bdef.mixer == "rwkv":
@@ -134,6 +184,11 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
         raise ValueError(bdef.mixer)
     out, cache = res if return_cache else (res, None)
     x = x + out
+    if bdef.mixer == "attn_x":  # seamless decoder: the cross-attention sub-layer
+        h = apply_norm(x, bp["norm_x"], cfg.norm, cfg.norm_eps)
+        x = x + attn.cross_attn_fwd(bp["xattn"], h, memory, cfg)
+        if return_cache:
+            cache.update(_cross_cache(bp["xattn"], memory))
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
     if bdef.mlp == "dense":
         return x + _mlp_fwd(bp["mlp"], h, cfg), None, cache
@@ -150,13 +205,14 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _group_fwd(layout: Layout, gparams: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, return_cache: bool) -> tuple[torch.Tensor, dict, dict]:
+               positions: torch.Tensor, return_cache: bool,
+               memory: torch.Tensor | None) -> tuple[torch.Tensor, dict, dict]:
     """Returns (x, the MoE blocks' summed aux or None, the group's cache)."""
     gcache = {}
     aux_sum = None
     for i, bdef in enumerate(layout.group):
         x, aux, gcache[f"b{i}"] = _block_fwd(bdef, gparams[f"b{i}"], x, cfg, positions,
-                                             return_cache)
+                                             return_cache, memory)
         aux_sum = _add_aux(aux_sum, aux)
     return x, aux_sum, gcache
 
@@ -207,9 +263,10 @@ def _zero_aux(device: torch.device) -> dict:
 
 
 def _run_stack(layout: Layout, groups_params: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor, return_cache: bool):
-    """The groups of one stack in order. Returns (x, the summed aux or
-    None, the caches stacked (num_groups, ...) or None)."""
+               positions: torch.Tensor, return_cache: bool, memory: torch.Tensor | None = None):
+    """The groups of one stack in order, each reading ``memory`` when it
+    cross-attends. Returns (x, the summed aux or None, the caches stacked
+    (num_groups, ...) or None)."""
     remat = None if return_cache else _remat_groups(cfg)
     # one view per group of every stacked leaf: under grad, unbind's backward
     # stacks the groups' gradients once, where indexing would add a zero-filled
@@ -221,38 +278,70 @@ def _run_stack(layout: Layout, groups_params: dict, x: torch.Tensor, cfg: ModelC
         gparams = map_leaves(lambda views: views[g], groups)
         if remat is not None:
             x, gaux = checkpoint(
-                lambda x, gp: _group_fwd(layout, gp, x, cfg, positions, False)[:2],
-                x, gparams, **remat)
+                lambda x, gp, mem: _group_fwd(layout, gp, x, cfg, positions, False, mem)[:2],
+                x, gparams, memory, **remat)
         else:
-            x, gaux, gcache = _group_fwd(layout, gparams, x, cfg, positions, return_cache)
+            x, gaux, gcache = _group_fwd(layout, gparams, x, cfg, positions, return_cache,
+                                         memory)
             caches.append(gcache)
         aux = _add_aux(aux, gaux)
     stacked = map_leaves(lambda *leaves: torch.stack(leaves), *caches) if return_cache else None
     return x, aux, stacked
 
 
+def _encode(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """seamless: project the source frames, run the bidirectional encoder
+    stack, normalise."""
+    enc = params["encoder"]
+    x = attn.matmul_promote(frames, enc["proj"])
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, _, _ = _run_stack(encoder_layout(cfg), enc["groups"], x, cfg, positions, False)
+    return apply_norm(x, enc["norm_f"], cfg.norm, cfg.norm_eps)
+
+
+def _memory_from_batch(params: dict, cfg: ModelConfig, batch: dict) -> torch.Tensor | None:
+    """What the cross-attention reads: the encoder's output over
+    ``src_frames`` (seamless), or ``image_embeds`` as they are (llama-3.2-
+    vision), in the compute dtype; None for a model without one. A missing
+    key raises ``ValueError`` naming it (the reference raises a bare
+    ``KeyError``; ROADMAP C19)."""
+    key = "src_frames" if cfg.is_encdec else "image_embeds" if cfg.cross_attn_every > 0 else None
+    if key is None:
+        return None
+    if key not in batch:
+        raise ValueError(f"{cfg.name} cross-attends to a memory: the batch needs {key!r} "
+                         f"(ServeEngine.generate(..., extras={{{key!r}: ...}}))")
+    mem = batch[key].to(dtype_of(cfg.compute_dtype))
+    return _encode(params, cfg, mem) if cfg.is_encdec else mem
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool = False,
             return_hidden: bool = False):
-    """Full-sequence forward. batch: {"tokens": (B, S) integer tensor}.
+    """Full-sequence forward. batch: {"tokens": (B, S) integer tensor}, and
+    the memory the cross-attention reads: ``image_embeds`` (B, M,
+    vision_embed_dim) for llama-3.2-vision, ``src_frames`` (B, M,
+    audio_embed_dim) for seamless.
 
     Returns (logits, aux[, cache][, hidden]); aux holds the MoE blocks'
     summed ``lb_loss`` and ``z_loss`` (zeros without experts); cache leaves
     are stacked (num_groups, ...), the dense prefix's under
-    ``prefix_layers``; hidden is the final norm's output, which
+    ``prefix_layers``, and ``memory`` holds the cross-attention's memory
+    (None without one); hidden is the final norm's output, which
     ``mtp_logits`` takes.
     """
     tokens = batch["tokens"].long()
     x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
     positions = torch.arange(tokens.shape[1], device=x.device)
+    memory = _memory_from_batch(params, cfg, batch)
     if cfg.dense_prefix_layers > 0:
         x, _, prefix_caches = _run_stack(prefix_layout(cfg), params["prefix_groups"], x,
                                          prefix_cfg(cfg), positions, return_cache)
-    x, aux, caches = _run_stack(decoder_layout(cfg), params["groups"], x, cfg, positions,
-                                return_cache)
+    x, aux, caches = _run_stack(main_layout(cfg), params["groups"], x, cfg, positions,
+                                return_cache, memory)
     hidden = apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps)
     out = (_logits(params, cfg, hidden), aux if aux is not None else _zero_aux(x.device))
     if return_cache:
-        cache = {"layers": caches, "memory": None}
+        cache = {"layers": caches, "memory": memory}
         if cfg.dense_prefix_layers > 0:
             cache["prefix_layers"] = prefix_caches
         out += (cache,)
@@ -281,8 +370,9 @@ _SEQ_CACHE_KEYS = ("k", "v", "c_kv", "k_rope")  # leaves with a seq axis at dim 
 def pad_cache(cache: dict, cfg: ModelConfig, max_len: int) -> dict:
     """Grow the sequence-indexed leaves, stacked (groups, B, S, ...), to the
     decode cache length. State leaves (RWKV's ``wkv`` and ``x_prev``,
-    Mamba's ``h`` and ``conv``) are left as they are; ring buffers (SWA)
-    never grow past the window."""
+    Mamba's ``h`` and ``conv``), the cross-attention's ``xk``/``xv`` and the
+    ``memory`` keep their length; ring buffers (SWA) never grow past the
+    window."""
     target = attn.cache_len(cfg, max_len)
 
     def walk(tree: dict) -> dict:
@@ -323,8 +413,10 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
     """One token through one block. ``cache`` holds views of this layer's
     slice of the stacked cache; every mixer writes into them in place."""
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
-    if bdef.mixer == "attn":
+    if bdef.mixer in ("attn", "attn_x"):
         out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos, cfg)
+    elif bdef.mixer == "xattn":
+        out = _xattn_decode(bp["mixer"], h, cache)
     elif bdef.mixer == "mla":
         out, _ = mla_mod.mla_decode(
             bp["mixer"], h, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}, pos, cfg)
@@ -336,6 +428,9 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
     else:
         raise ValueError(bdef.mixer)
     x = x + out
+    if bdef.mixer == "attn_x":
+        h = apply_norm(x, bp["norm_x"], cfg.norm, cfg.norm_eps)
+        x = x + _xattn_decode(bp["xattn"], h, cache)
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
     if bdef.mlp == "dense":
         return x + _mlp_fwd(bp["mlp"], h, cfg)
@@ -346,6 +441,17 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
         raise ValueError(bdef.mlp)
     out, _ = rwkv_mod.rwkv_channel_mix_decode(bp["mlp"], h, cache["cm"], cfg)
     return x + out
+
+
+def _xattn_decode(params: dict, h: torch.Tensor, cache: dict) -> torch.Tensor:
+    """One token against the cached memory K/V, in plain torch (the
+    reference has no decode kernel); ``bq`` added, ``bk``/``bv`` never
+    (ROADMAP C20)."""
+    q = attn.project_in(h, params["wq"])
+    if "bq" in params:
+        q = q + params["bq"]
+    out = attn.gqa_scores_softmax_out(q, cache["xk"], cache["xv"], None)
+    return attn.gate_out(params, attn.project_out(out, params["wo"]))
 
 
 def _decode_stack(layout: Layout, groups_params: dict, layer_caches: dict, x: torch.Tensor,
@@ -369,6 +475,6 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     if cfg.dense_prefix_layers > 0:
         x = _decode_stack(prefix_layout(cfg), params["prefix_groups"], cache["prefix_layers"], x,
                           pos, prefix_cfg(cfg))
-    x = _decode_stack(decoder_layout(cfg), params["groups"], cache["layers"], x, pos, cfg)
+    x = _decode_stack(main_layout(cfg), params["groups"], cache["layers"], x, pos, cfg)
     logits = _logits(params, cfg, apply_norm(x, params["norm_f"], cfg.norm, cfg.norm_eps))
     return logits, cache

@@ -1,17 +1,18 @@
-"""Parameter specs and initialisation (dense, MoE, MLA, RWKV-6 and jamba branches).
+"""Parameter specs and initialisation (every branch of the reference's models).
 
 Port of the reference's ``ParamLeaf`` / ``stack_spec`` / ``init_params``
 (``models/sharding.py``) and of the spec functions of ``models/model.py``,
 ``models/attention.py``, ``models/mla.py``, ``models/moe.py``,
 ``models/rwkv.py`` and ``models/ssm.py``. The shape tree equals the
-reference's ``model_spec(cfg)`` for the ported architectures, deepseek's
-``prefix_groups`` and ``mtp`` subtrees included.
+reference's ``model_spec(cfg)`` for all ten architectures, deepseek's
+``prefix_groups`` and ``mtp`` subtrees and seamless's ``encoder`` included.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 from typing import Any, Callable
 
 import torch
@@ -19,7 +20,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..tree import leaves_with_names, map_leaves
-from .model import BlockDef, decoder_layout, mixer_of, prefix_cfg, prefix_layout
+from .model import BlockDef, encoder_layout, main_layout, mixer_of, prefix_cfg, prefix_layout
 from .ssm import d_inner
 
 
@@ -120,7 +121,7 @@ def count_params(spec: Any) -> int:
 # ---------------------------------------------------------------------------
 
 
-def attn_spec(cfg: ModelConfig) -> dict:
+def attn_spec(cfg: ModelConfig, cross: bool = False) -> dict:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     spec = {
         "wq": ParamLeaf((d, h, hd), ("embed", "heads", "head_dim")),
@@ -128,6 +129,13 @@ def attn_spec(cfg: ModelConfig) -> dict:
         "wv": ParamLeaf((d, kv, hd), ("embed", "kv_heads", "head_dim")),
         "wo": ParamLeaf((h, hd, d), ("heads", "head_dim", "embed")),
     }
+    if cross:
+        # K/V come from the vision memory (its own width) or the encoder's output;
+        # the tanh gate starts at zero, so a fresh cross-attention adds nothing
+        mem_d = cfg.vision_embed_dim if cfg.family == "vlm" else cfg.d_model
+        spec["wk"] = ParamLeaf((mem_d, kv, hd), ("vision_embed", "kv_heads", "head_dim"))
+        spec["wv"] = ParamLeaf((mem_d, kv, hd), ("vision_embed", "kv_heads", "head_dim"))
+        spec["gate"] = ParamLeaf((1,), (None,), init="zeros")
     if cfg.qkv_bias:
         spec["bq"] = ParamLeaf((h, hd), ("heads", "head_dim"), init="zeros")
         spec["bk"] = ParamLeaf((kv, hd), ("kv_heads", "head_dim"), init="zeros")
@@ -258,18 +266,22 @@ def moe_spec(cfg: ModelConfig) -> dict:
     return spec
 
 
-_MIXER_SPECS = {"attn": attn_spec, "mla": mla_spec, "rwkv": rwkv_time_mix_spec,
-                "mamba": mamba_spec}
+_MIXER_SPECS = {"attn": attn_spec, "attn_x": attn_spec, "xattn": partial(attn_spec, cross=True),
+                "mla": mla_spec, "rwkv": rwkv_time_mix_spec, "mamba": mamba_spec}
 _MLP_SPECS = {"dense": _mlp_spec, "moe": moe_spec, "rwkv_cm": rwkv_channel_mix_spec}
 
 
 def _block_spec(bdef: BlockDef, cfg: ModelConfig) -> dict:
-    return {
+    spec = {
         "norm1": _norm_spec(cfg),
         "mixer": _MIXER_SPECS[bdef.mixer](cfg),
         "mlp": _MLP_SPECS[bdef.mlp](cfg),
         "norm2": _norm_spec(cfg),
     }
+    if bdef.mixer == "attn_x":  # seamless decoder: a cross-attention sub-layer after self-attention
+        spec["xattn"] = attn_spec(cfg, cross=True)
+        spec["norm_x"] = _norm_spec(cfg)
+    return spec
 
 
 def _groups_spec(layout, cfg: ModelConfig) -> dict:
@@ -280,13 +292,19 @@ def _groups_spec(layout, cfg: ModelConfig) -> dict:
 def model_spec(cfg: ModelConfig) -> dict:
     spec: dict[str, Any] = {
         "embed": ParamLeaf((cfg.vocab_size, cfg.d_model), ("vocab", "embed"), init="embed"),
-        "groups": _groups_spec(decoder_layout(cfg), cfg),
+        "groups": _groups_spec(main_layout(cfg), cfg),
         "norm_f": _norm_spec(cfg),
     }
     if not cfg.tied_embeddings:
         spec["lm_head"] = ParamLeaf((cfg.d_model, cfg.vocab_size), ("embed", "vocab"))
     if cfg.dense_prefix_layers > 0:  # deepseek: dense-MLP layers ahead of the MoE ones
         spec["prefix_groups"] = _groups_spec(prefix_layout(cfg), prefix_cfg(cfg))
+    if cfg.is_encdec:  # seamless: the bidirectional encoder over projected source frames
+        spec["encoder"] = {
+            "proj": ParamLeaf((cfg.audio_embed_dim, cfg.d_model), ("vision_embed", "embed")),
+            "groups": _groups_spec(encoder_layout(cfg), cfg),
+            "norm_f": _norm_spec(cfg),
+        }
     if cfg.mtp_depth > 0:  # one block of the main cfg: its MLP is d_ff wide
         spec["mtp"] = {
             "proj": ParamLeaf((2 * cfg.d_model, cfg.d_model), ("embed_noshard", "embed")),

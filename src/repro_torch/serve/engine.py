@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..data.pipeline import to_device
 from ..device import resolve_device
 from ..models.model import decode_step, prefill
 from ..tree import map_leaves
@@ -53,11 +54,17 @@ class ServeEngine:
         seed: int = 0,
         extras: dict | None = None,
     ) -> np.ndarray:
-        if extras:
-            raise NotImplementedError("extras (image/audio memories) are not ported yet")
+        """``extras`` holds the memory a cross-attending model reads, one row
+        per prompt (``image_embeds`` for llama-3.2-vision, ``src_frames``
+        for seamless; arrays or tensors), moved to the engine's device; the
+        model casts it to the compute dtype. Such a model without it raises
+        ``ValueError`` naming the key."""
         b, s = tokens.shape
         assert s + max_new_tokens <= self.max_len, "increase max_len"
         batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)}
+        for key, val in (extras or {}).items():
+            batch[key] = (val.to(self.device) if isinstance(val, torch.Tensor)
+                          else to_device({key: val}, self.device)[key])
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)

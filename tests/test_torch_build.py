@@ -100,7 +100,7 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("module,name,symbol,nargs", [
-    (fa, "flash_attention", "flash_attention_fwd", 13),
+    (fa, "flash_attention", "flash_attention_fwd", 14),
     (wkv, "rwkv6", "rwkv6_wkv_fwd", 13),
     (ms, "mamba_scan", "mamba_scan_fwd", 14),
 ])

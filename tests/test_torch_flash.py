@@ -127,3 +127,35 @@ def test_cuda_kernel_matches_plain_twin(b, s, h, kv, d, window, dtype):
                                        (200, 128, torch.bfloat16)])
 def test_cuda_kernel_bidirectional_ragged_matches_plain_twin(s, d, dtype):
     _cuda_against_plain(1, s, 8, 2, d, 0, dtype, causal=False)
+
+
+# k and v of a length of their own (cross-attention over an image's patches
+# or an encoder's frames): S_q below and above S_kv, S_kv ragged against the
+# 64-row tile, GQA groups 1 and 4. Past a thousand keys a row's outputs are
+# about 0.03, so bfloat16 is held at 4e-3 / 1.6e-2 there (the bar of
+# chip_smoke.py's long rows), not 3e-2.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,dtype", [
+    (2, 300, 1601, 32, 8, 128, torch.bfloat16),
+    (1, 1000, 300, 16, 16, 64, torch.bfloat16),
+    (2, 300, 1000, 16, 16, 64, torch.float32),
+    (1, 77, 1601, 8, 2, 128, torch.float32),
+    (1, 200, 45, 4, 1, 20, torch.bfloat16),
+])
+def test_cuda_kernel_with_own_kv_length_matches_plain_twin(b, sq, skv, h, kv, d, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    q = torch.from_numpy(_qkv(b, sq, h, kv, d, seed=sq)[0]).to("cuda", dtype)
+    _, k, v = (torch.from_numpy(a).to("cuda", dtype) for a in _qkv(b, skv, h, kv, d, seed=skv))
+    before = fa.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = ops.flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=False)
+    if dtype == torch.float32:
+        atol, rtol = 2e-5, 1e-4
+    else:
+        atol, rtol = (4e-3, 1.6e-2) if skv >= 1000 else (3e-2, 3e-2)
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().numpy(), atol=atol,
+                               rtol=rtol)

@@ -361,11 +361,11 @@ def test_pad_cache_leaves_mamba_state_and_pads_attention_as_the_reference(ref_mo
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("bdef,name", [(BlockDef("xattn", "dense"), "xattn"),
-                                       (BlockDef("attn_x", "dense"), "attn_x")])
+@pytest.mark.parametrize("bdef,name", [(BlockDef("retnet", "dense"), "retnet"),
+                                       (BlockDef("hyena", "dense"), "hyena")])
 def test_unknown_block_kinds_raise_in_forward_and_decode(bdef, name, ref_model):
-    """A mixer or MLP that is not ported raises instead of running another
-    block's code."""
+    """A mixer that no layout has raises instead of running another block's
+    code."""
     _, _, cfg, params = ref_model
     bp = jax.tree.map(lambda p: p[0], params["groups"]["b0"])
     x = torch.from_numpy(_hidden(cfg.d_model, t=4))
