@@ -103,7 +103,21 @@ Phases, each of which exits non-zero when it fails:
      engine's seconds per batch and the share outside it (requests 5-8
      wait until batch 1 is on the engine; that wait is reported); this process
      then holds no module of ``repro`` or JAX;
- 13. each kernel, its plain twin and, where there is one, a PyTorch call
+ 13. ``[launch]``: the launchers' own CLIs through the broker and the
+     executors: ``launch.serve`` of full-width stablelm-3b (float32) in
+     this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
+     attention launches a prefill and none of the scans, tokens equal to
+     the engine's own generate on each batch the broker formed, and each
+     served prefill's cache equal to ``abstract_cache`` in paths, shapes
+     and dtypes; wall time, tokens/s and the share outside the engine.
+     Then ``launch.train`` at smoke size (6 steps) in a process of its own
+     under deterministic algorithms: both JSON outputs, within
+     ``LAUNCH_ATOL`` of the training handlers called directly, and exact
+     launch counts; and ``launch.train`` of full-width stablelm-3b
+     (float32, AdamW, 2 steps, its whole state checkpointed through CFS and
+     restored by ``evaluate``), held the same way to the direct handlers,
+     each run in a child process of its own;
+ 14. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
      mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
@@ -310,6 +324,26 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 1024, 2, 3
 # default workspace.
 CONTINUUM_KW = dict(arch="stablelm-3b", steps=6, batch=4, seq_len=64, checkpoint_every=2)
 CONTINUUM_ENV = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+# [launch]: the launchers' own CLIs, through the broker and the executors.
+# Serving answers 8 requests in 2 waves of 4 at full width (float32, as the
+# executor builds it), prompts of up to the launcher's 300 tokens; training
+# is the continuum's smoke run, 6 steps, through the TrainerExecutor, in a
+# process of its own under CONTINUUM_ENV, so it can be held at 1e-6 to the
+# handlers called directly
+LAUNCH_SERVE_ARGS = ["--arch", "stablelm-3b", "--variant", "full", "--device", "cuda",
+                     "--requests", "8", "--batch-size", "4", "--max-new-tokens", "16"]
+LAUNCH_TRAIN_ARGS = ["--arch", "stablelm-3b", "--variant", "smoke", "--steps", "6",
+                     "--checkpoint-every", "2", "--device", "cuda"]
+LAUNCH_TRAIN_KW = dict(arch="stablelm-3b", variant="smoke", steps=6, batch=4, seq_len=64,
+                       microbatches=1, optimizer="adamw", learning_rate=3e-4,
+                       checkpoint_every=2, run="cli-run", use_pallas=False)
+# and full-width stablelm-3b (float32, 11.2 GB of weights and 22.4 GB of AdamW
+# moments) for 2 steps, one checkpoint of its 33.5 GB state through signed
+# CFS, and the evaluate that restores it
+LAUNCH_TRAIN_FULL_ARGS = ["--arch", "stablelm-3b", "--variant", "full", "--steps", "2",
+                          "--checkpoint-every", "2", "--device", "cuda"]
+LAUNCH_TRAIN_FULL_KW = dict(LAUNCH_TRAIN_KW, variant="full", steps=2)
+LAUNCH_ATOL = 1e-6
 # [train-cross]: cuda against cpu after 3 smoke f32 steps; the largest
 # differences measured on an H100 were 1.9e-6 (grad norm) and 3.2e-7 (params)
 TRAIN_CROSS_ATOL, TRAIN_CROSS_RTOL = 1e-5, 1e-5
@@ -420,7 +454,7 @@ def device_ms(fn, iters: int, repeats: bool = False) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then records nothing: ask again
+    for _ in range(6):  # the profiler now and then records nothing: ask again
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -2006,12 +2040,12 @@ def phase_continuum() -> dict:
     return counts
 
 
-def phase_continuum_process() -> dict:
-    """``phase_continuum`` in a child process (``--continuum``) under
-    ``CONTINUUM_ENV``; its output is passed on, and its last line holds
-    the launch counts of its training run."""
+def child_phase(flag: str, tag: str) -> dict:
+    """The phase of ``CHILD_PHASES[flag]`` in a child process (``chip_smoke.py
+    <flag>``) under ``CONTINUUM_ENV``; its output is passed on, and its last
+    line, the phase's result as JSON, is returned."""
     t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--continuum"],
+    res = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag],
                          env=dict(os.environ, **CONTINUUM_ENV), capture_output=True, text=True,
                          timeout=600)
     lines = res.stdout.splitlines()
@@ -2019,8 +2053,8 @@ def phase_continuum_process() -> dict:
         print(line)
     if res.returncode != 0:
         print(res.stderr[-8000:], file=sys.stderr)
-    check(res.returncode == 0 and bool(lines), f"[continuum] process exited {res.returncode}")
-    print(f"[continuum] {time.perf_counter() - t0:.1f} s in its own process")
+    check(res.returncode == 0 and bool(lines), f"{tag} process exited {res.returncode}")
+    print(f"{tag} {time.perf_counter() - t0:.1f} s in its own process")
     return json.loads(lines[-1])
 
 
@@ -2484,6 +2518,248 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
     return counts, stats
 
 
+def phase_launch_serve() -> tuple[dict, dict]:
+    """``launch.serve.main`` of full-width stablelm-3b on the card: the
+    broker in this process, a ServeExecutor (float32) behind a generator of
+    queuesize 4, 8 requests in 2 waves. 2 batches of 4, exactly 32 flash
+    attention launches a prefill and none of the scans, greedy tokens equal
+    to the engine's own generate on each batch the broker formed, and every
+    served prefill's cache equal to ``abstract_cache`` in paths, shapes and
+    dtypes; wall time, tokens/s and the share outside the engine."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.model import abstract_cache
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.batcher import pad_prompts
+    from repro_torch.tree import leaves_with_names
+
+    tag = "[launch]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    generate, prefill = engine_mod.ServeEngine.generate, engine_mod.prefill
+    engine_s, caches = [], []
+
+    def timed_generate(self, *args, **kwargs):  # the engine's own time per batch
+        t = time.perf_counter()
+        out = generate(self, *args, **kwargs)  # ends in a copy to the host
+        engine_s.append(time.perf_counter() - t)
+        return out
+
+    def recorded_prefill(*args, **kwargs):  # the structure of each served prefill's cache
+        logits, cache = prefill(*args, **kwargs)
+        caches.append([(n, tuple(t.shape), t.dtype, t.device.type)
+                       for n, t in leaves_with_names(cache)])
+        return logits, cache
+
+    engine_mod.ServeEngine.generate, engine_mod.prefill = timed_generate, recorded_prefill
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_launches(mods)
+        res = serve_cli.main(LAUNCH_SERVE_ARGS)
+        counts = {name: mod.launches for name, mod in mods.items()}
+    finally:
+        engine_mod.ServeEngine.generate, engine_mod.prefill = generate, prefill
+    engine, batches = res["engine"], res["batches"]
+    cfg = engine.cfg
+    sizes = [len(b) for b in batches]
+    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
+    print(f"{tag} launch.serve {' '.join(LAUNCH_SERVE_ARGS)}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.param_dtype}; batches of {sizes}; engine stats {res['stats']}; "
+          f"launches {counts} (want {want})")
+    check(cfg.num_layers == 32 and cfg.d_model == 2560 and cfg.param_dtype == "float32",
+          f"served {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}")
+    check(sizes == [4, 4] and res["stats"]["batches"] == 2 and res["stats"]["requests"] == 8,
+          f"batches of {sizes}, engine stats {res['stats']}")
+    check(counts == want, f"launches {counts}, want {want}")
+    reqs = {r["request_id"]: r for r in res["requests"]}
+    for batch in batches:
+        packed = [reqs[rid] for rid in batch]
+        direct = engine.generate(pad_prompts(packed), max_new_tokens=16).tolist()
+        check([r["tokens"] for r in packed] == direct,
+              "tokens served through launch.serve differ from the engine's own generate")
+    abstract = [(n, tuple(t.shape), t.dtype, t.device.type)
+                for n, t in leaves_with_names(abstract_cache(cfg, 4, engine.max_len))]
+    check(len(caches) == 2, f"{len(caches)} served prefills, want 2")
+    for cache in caches:
+        check([c[:3] for c in cache] == [a[:3] for a in abstract],
+              f"the served prefill's cache {cache} differs from abstract_cache's {abstract}")
+        check({c[3] for c in cache} == {"cuda"} and {a[3] for a in abstract} == {"meta"},
+              "devices of the served and the abstract cache")
+    print(f"{tag} served tokens identical to generate on each batch the broker formed; "
+          f"abstract_cache(cfg, 4, {engine.max_len}) equals both served prefills' caches: "
+          f"{abstract}")
+    n_tok = res["stats"]["tokens"]
+    stats = {"wall_s": res["wall_s"], "tokens_per_s": n_tok / res["wall_s"],
+             "requests_per_s": res["stats"]["requests"] / res["wall_s"], "engine_s": engine_s,
+             "outside_engine_share": 1 - sum(engine_s) / res["wall_s"],
+             "peak_bytes": torch.cuda.max_memory_allocated()}
+    print(f"{tag} first submit to last result {res['wall_s']:.3f} s: {stats['tokens_per_s']:.1f} "
+          f"tokens/s, {stats['requests_per_s']:.3f} requests/s; engine per batch "
+          f"{[round(x, 4) for x in engine_s]} s; outside the engine (signed RPCs, CFS, the "
+          f"waves' generator waits) {stats['outside_engine_share']:.4f} of the wall time; "
+          f"max_memory_allocated {stats['peak_bytes']} bytes")
+    del res, engine
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} serve {stats['seconds']:.1f} s")
+    return counts, stats
+
+
+def _launch_train_cli(args: list[str]) -> tuple[list, dict, float]:
+    """``launch.train.main(args)`` under deterministic algorithms, its two
+    printed JSON documents checked against what it returned: the outputs,
+    each kernel's launches and the seconds it took."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as train_cli
+
+    mods = kernel_modules()
+    torch.use_deterministic_algorithms(True)
+    try:
+        zero_launches(mods)
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            outs = train_cli.main(args)
+        seconds = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in mods.items()}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    text = printed.getvalue()
+    decoder = json.JSONDecoder()
+    first, end = decoder.raw_decode(text)
+    second, _ = decoder.raw_decode(text[end:].lstrip())
+    print(f"[launch] launch.train {' '.join(args)} printed {json.dumps(first)} and "
+          f"{json.dumps(second)} in {seconds:.3f} s")
+    check([first, second] == outs, "launch.train returned other outputs than it printed")
+    return outs, counts, seconds
+
+
+def _launch_train_direct(kw: dict) -> tuple[list, list]:
+    """``train_loop.train`` then ``evaluate`` called directly on the card
+    with ``kw``, against a ``MemoryStore``, under deterministic algorithms."""
+    from repro_torch.runtime import train_loop as tl
+    from repro_torch.runtime.store import MemoryStore
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        store = MemoryStore()
+        want = tl.train(store, "launch", device="cuda", **kw)
+        want_ev = tl.evaluate(store, "launch", device="cuda",
+                              **{k: kw[k] for k in ("arch", "variant", "optimizer", "batch",
+                                                    "seq_len", "run", "use_pallas")})
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return want, want_ev
+
+
+def _check_launch_train(outs: list, want: list, want_ev: list, counts: dict, kw: dict) -> None:
+    """``launch.train``'s outputs within ``LAUNCH_ATOL`` of the direct
+    handlers', and flash attention's exact launches: each step's forward
+    and remat recomputation, then one forward per eval batch."""
+    from repro_torch.configs import get_config
+
+    tag = "[launch]"
+    cfg = get_config(kw["arch"], kw["variant"])
+    check(cfg.remat == "full", f"{kw['variant']} remat {cfg.remat}")
+    (got,), (got_ev,) = outs
+    err = max([abs(got["metrics"][k] - want[0]["metrics"][k]) for k in want[0]["metrics"]]
+              + [abs(got_ev["eval_ce"] - want_ev[0]["eval_ce"])])
+    print(f"{tag} {kw['variant']}: direct train_loop.train/evaluate: {json.dumps(want)} "
+          f"{json.dumps(want_ev)}; largest difference {err:.3e} (atol {LAUNCH_ATOL})")
+    check(got["final_step"] == want[0]["final_step"] == kw["steps"] - 1
+          and got_ev["step"] == want_ev[0]["step"] == got["final_step"],
+          f"steps {got['final_step']} {got_ev['step']}, direct {want} {want_ev}")
+    check(set(got["metrics"]) == set(want[0]["metrics"]) and err <= LAUNCH_ATOL,
+          f"launch.train differs from the direct handlers by {err}")
+    check(all(math.isfinite(v) for v in got["metrics"].values())
+          and math.isfinite(got_ev["eval_ce"]), f"non-finite outputs {outs}")
+    want_counts = {name: (kw["steps"] * 2 + EXEC_EVAL_BATCHES) * cfg.num_layers
+                   if name == "flash_attention" else 0 for name in counts}
+    print(f"{tag} {kw['variant']}: launch.train launches {counts} (want {want_counts})")
+    check(counts == want_counts, f"launch.train launches {counts}, want {want_counts}")
+
+
+def phase_launch_train() -> dict:
+    """``launch.train.main`` of the smoke run on the card, through a
+    TrainerExecutor behind the broker (run in a process of its own,
+    ``--launch-train``), held to ``train_loop.train``/``evaluate`` called
+    directly with the same arguments in the same process."""
+    outs, counts, _ = _launch_train_cli(LAUNCH_TRAIN_ARGS)
+    _check_launch_train(outs, *_launch_train_direct(LAUNCH_TRAIN_KW), counts, LAUNCH_TRAIN_KW)
+    return counts
+
+
+def phase_launch_train_full_cli() -> dict:
+    """``launch.train.main`` of full-width stablelm-3b (float32, AdamW, 2
+    steps and one checkpoint of the whole state through signed CFS, then
+    ``evaluate`` restoring it) in a process of its own
+    (``--launch-train-full``): its outputs, launches, seconds, and the
+    peaks of device and host memory."""
+    import resource
+
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    save, restore = CheckpointManager.save, CheckpointManager.restore
+    ckpt_s: dict[str, list[float]] = {"save_s": [], "restore_s": []}
+
+    def timed(fn, key):  # each save's and restore's seconds, the device finished
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            ckpt_s[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    CheckpointManager.save, CheckpointManager.restore = timed(save, "save_s"), timed(restore,
+                                                                                    "restore_s")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        outs, counts, seconds = _launch_train_cli(LAUNCH_TRAIN_FULL_ARGS)
+    finally:
+        CheckpointManager.save, CheckpointManager.restore = save, restore
+    return {"outs": outs, "counts": counts, "seconds": seconds, **ckpt_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "host_peak_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024}
+
+
+def phase_launch_train_full_direct() -> dict:
+    """The direct handlers with ``LAUNCH_TRAIN_FULL_KW`` in a process of
+    their own (``--launch-train-full-direct``): the host could not hold
+    both runs' checkpoints at once."""
+    t0 = time.perf_counter()
+    want, want_ev = _launch_train_direct(LAUNCH_TRAIN_FULL_KW)
+    return {"want": want, "want_ev": want_ev, "seconds": time.perf_counter() - t0}
+
+
+def phase_launch_train_full() -> tuple[dict, dict]:
+    """Full-width ``launch.train`` against the direct handlers, each in a
+    child process, with flash attention's exact launches (2 steps x 32
+    layers x forward and recomputation, 2 eval batches x 32 layers)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[launch] before full-width launch.train: this process holds "
+          f"{torch.cuda.memory_allocated()} bytes, {torch.cuda.mem_get_info()[0]} free")
+    cli = child_phase("--launch-train-full", "[launch]")
+    direct = child_phase("--launch-train-full-direct", "[launch]")
+    _check_launch_train(cli["outs"], direct["want"], direct["want_ev"], cli["counts"],
+                        LAUNCH_TRAIN_FULL_KW)
+    check(len(cli["save_s"]) == 1 and len(cli["restore_s"]) == 1,
+          f"{cli['save_s']} saves and {cli['restore_s']} restores, want one each")
+    stats = {k: cli[k] for k in ("seconds", "save_s", "restore_s", "peak_bytes",
+                                 "host_peak_bytes")}
+    stats["direct_seconds"] = direct["seconds"]
+    print(f"[launch] full-width launch.train {cli['seconds']:.3f} s (direct handlers "
+          f"{direct['seconds']:.3f} s); the checkpoint through signed CFS: save "
+          f"{cli['save_s'][0]:.3f} s, restore {cli['restore_s'][0]:.3f} s; "
+          f"max_memory_allocated {cli['peak_bytes']} bytes, host max RSS "
+          f"{cli['host_peak_bytes']} bytes")
+    return cli["counts"], stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
@@ -2524,7 +2800,7 @@ def main() -> int:
     cross_device_counts = {arch: phase_cross_device(arch, "smoke", 72, reseed_gates)
                            for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2")}
     train_counts, train_stats = phase_train_full(grad_stats)
-    continuum_counts = phase_continuum_process()
+    continuum_counts = child_phase("--continuum", "[continuum]")
     cross_counts, cross_worst = phase_train_cross()
     broker = Broker()
     try:
@@ -2534,6 +2810,9 @@ def main() -> int:
         check(broker.alive(), "the broker process died")
     finally:
         broker.close()
+    launch_serve_counts, launch_stats = phase_launch_serve()
+    launch_train_counts = child_phase("--launch-train", "[launch]")
+    launch_full_counts, launch_full_stats = phase_launch_train_full()
     foreign = reference_modules(sys.modules)
     print(f"[broker] stopped; modules of the reference or of JAX in this process: {foreign}")
     check(not foreign, f"this process imported {foreign}")
@@ -2541,7 +2820,10 @@ def main() -> int:
              "jamba-1.5-large-398b": jamba_counts, "stablelm-3b train": train_counts,
              "stablelm-3b continuum": continuum_counts,
              "stablelm-3b executors-continuum": executor_counts,
-             "stablelm-3b executors-serve-full": serve_exec_counts}
+             "stablelm-3b executors-serve-full": serve_exec_counts,
+             "stablelm-3b launch-serve": launch_serve_counts,
+             "stablelm-3b launch-train": launch_train_counts,
+             "stablelm-3b launch-train-full": launch_full_counts}
     earlier = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b checks": swa_counts,
                   "deepseek-v3-671b two-moe": deepseek_counts,
@@ -2577,6 +2859,8 @@ def main() -> int:
           f"{grad_stats['mamba_grad_err']:.3e}); train cuda vs cpu {json.dumps(cross_worst)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
+    print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
+          f"{json.dumps(launch_full_stats)}")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2585,9 +2869,13 @@ def main() -> int:
     return 0
 
 
+CHILD_PHASES = {"--continuum": phase_continuum, "--launch-train": phase_launch_train,
+                "--launch-train-full": phase_launch_train_full_cli,
+                "--launch-train-full-direct": phase_launch_train_full_direct}
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--continuum"]:
+    if len(sys.argv) == 2 and sys.argv[1] in CHILD_PHASES:
         check(torch.cuda.is_available(), "no CUDA device")
-        print(json.dumps(phase_continuum()))
+        print(json.dumps(CHILD_PHASES[sys.argv[1]]()))
         sys.exit(0)
     sys.exit(main())

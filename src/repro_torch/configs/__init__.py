@@ -12,7 +12,7 @@ from . import (
     deepseek_v3_671b, granite_3_8b, jamba_1_5_large_398b, llama_3_2_vision_11b, mixtral_8x7b,
     qwen2_5_14b, rwkv6_7b, seamless_m4t_large_v2, stablelm_3b, starcoder2_15b,
 )
-from .base import ModelConfig, TrainConfig
+from .base import SHAPES, ModelConfig, ShapeConfig, TrainConfig
 
 ARCHS: dict[str, object] = {
     m.ARCH_ID: m for m in (starcoder2_15b, qwen2_5_14b, stablelm_3b, granite_3_8b,
@@ -42,7 +42,9 @@ def get_config(arch: str, variant: str = "full") -> ModelConfig:
 __all__ = [
     "ARCHS",
     "ARCH_IDS",
+    "SHAPES",
     "ModelConfig",
+    "ShapeConfig",
     "TrainConfig",
     "get_config",
 ]

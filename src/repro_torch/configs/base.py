@@ -1,6 +1,7 @@
 """Model and training configuration: copies of the reference's
-``ModelConfig`` with its sub-configs and of its ``TrainConfig``, so the
-port never imports the JAX package.
+``ModelConfig`` with its sub-configs, of its ``TrainConfig`` and of the
+dry-run's cells (``ShapeConfig``, ``SHAPES``), so the port never imports
+the JAX package.
 
 The fields and defaults are kept identical to the reference so that a
 config built on either side describes the same model.
@@ -139,6 +140,28 @@ class ModelConfig:
 
     def copy(self, **kw: Any) -> "ModelConfig":
         return replace(self, **kw)
+
+
+@dataclass
+class ShapeConfig:
+    """One (input-shape) cell of the dry-run grid."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_train(self) -> bool:
+        return self.kind == "train"
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclass

@@ -162,6 +162,13 @@ def cache_len(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
+def abstract_attn_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtype) -> dict:
+    """The decode cache's K/V as tensors on the meta device (no memory)."""
+    shape = (batch, cache_len(cfg, max_len), cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+
 def make_cache_from_prefill(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig) -> dict:
     """Prefill K/V -> decode cache. Under SWA, keep the last ``window``
     positions rotated into ring order (slot = position % window)."""

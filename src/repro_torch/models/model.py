@@ -31,7 +31,8 @@ reference) runs inside a non-reentrant ``torch.utils.checkpoint`` as the
 reference wraps its scan body in ``jax.checkpoint``: with ``cfg.remat ==
 "full"`` it is recomputed whole in the backward pass, with ``"dots"`` the
 outputs of the products without batch dimensions (``mm``, ``addmm``) are
-saved and the rest recomputed.
+saved and the rest recomputed. ``abstract_cache`` gives the structure of
+prefill's cache as tensors on the meta device, for the dry-run's cells.
 """
 
 from __future__ import annotations
@@ -403,6 +404,49 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, max_len: int | None = N
     return logits[:, -1:], cache
 
 
+def _block_abstract_cache(bdef: BlockDef, cfg: ModelConfig, batch: int, max_len: int,
+                          dtype: torch.dtype, mem_len: int) -> dict:
+    cache: dict = {}
+    if bdef.mixer in ("attn", "attn_x"):
+        cache.update(attn.abstract_attn_cache(cfg, batch, max_len, dtype))
+    if bdef.mixer in ("xattn", "attn_x"):
+        shape = (batch, mem_len, cfg.num_kv_heads, cfg.head_dim)
+        cache["xk"] = torch.empty(shape, dtype=dtype, device="meta")
+        cache["xv"] = torch.empty(shape, dtype=dtype, device="meta")
+    if bdef.mixer == "mla":
+        cache.update(mla_mod.init_mla_cache(cfg, batch, max_len, dtype, "meta"))
+    if bdef.mixer == "mamba":
+        cache.update(ssm_mod.init_mamba_cache(cfg, batch, dtype, "meta"))
+    if bdef.mixer == "rwkv":
+        cache.update(rwkv_mod.init_rwkv_cache(cfg, batch, dtype, "meta")["tm"])
+    if bdef.mlp == "rwkv_cm":
+        cache["cm"] = {"x_prev": torch.empty((batch, cfg.d_model), dtype=dtype, device="meta")}
+    return cache
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, mem_len: int = 0) -> dict:
+    """The cache ``prefill(..., max_len)`` returns for ``batch`` sequences
+    (and a memory of ``mem_len`` rows), as tensors on the meta device in
+    the compute dtype (Mamba's ``h`` and RWKV's ``wkv`` in float32): the
+    same paths, shapes and dtypes, no memory. ``memory`` is None for a
+    model without cross-attention."""
+    dtype = dtype_of(cfg.compute_dtype)
+
+    def group_stack(layout: Layout) -> dict:
+        gc = {f"b{i}": _block_abstract_cache(b, cfg, batch, max_len, dtype, mem_len)
+              for i, b in enumerate(layout.group)}
+        return map_leaves(lambda t: torch.empty((layout.num_groups, *t.shape), dtype=t.dtype,
+                                                device="meta"), gc)
+
+    out = {"layers": group_stack(main_layout(cfg)), "memory": None}
+    if cfg.dense_prefix_layers > 0:
+        out["prefix_layers"] = group_stack(prefix_layout(cfg))
+    if cfg.is_encdec or cfg.cross_attn_every > 0:
+        mdim = cfg.d_model if cfg.is_encdec else cfg.vision_embed_dim
+        out["memory"] = torch.empty((batch, mem_len, mdim), dtype=dtype, device="meta")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
@@ -467,9 +511,13 @@ def _decode_stack(layout: Layout, groups_params: dict, layer_caches: dict, x: to
 def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos: int):
     """One token for the whole batch. tokens: (B, 1). Returns (logits, cache).
 
-    The cache is updated in place: each group's slice is a view of the
-    stacked leaves, and the mixers write into it. The dense prefix runs
-    first, on its own ``prefix_layers``.
+    Unlike the reference's pure step, this one writes the cache it is
+    given and returns that same object: each group's slice is a view of
+    the stacked leaves, and the mixers write into it (a step captured in a
+    CUDA graph needs that). So a second step from the same cache reads the
+    first one's update; a caller that branches two decodes off one cache
+    clones it first, ``map_leaves(torch.clone, cache)`` (ROADMAP C21). The
+    dense prefix runs first, on its own ``prefix_layers``.
     """
     x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
     if cfg.dense_prefix_layers > 0:

@@ -15,18 +15,22 @@ def leaves_with_names(tree: Any, is_leaf: Callable[[Any], bool] | None = None) -
     """(keystr path, leaf) pairs in sorted-key order. ``None`` subtrees
     are empty, as in JAX."""
     out: list[tuple[str, Any]] = []
-
-    def walk(node: Any, path: str) -> None:
-        if node is None:
-            return
-        if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
-            for k in sorted(node):
-                walk(node[k], f"{path}[{k!r}]")
-            return
-        out.append((path, node))
-
-    walk(tree, "")
+    _walk_names(tree, "", is_leaf, out)
     return out
+
+
+# A module function, not a closure: a recursive closure over ``out`` is a
+# reference cycle that would hold the leaves (a whole train state) until
+# the cyclic garbage collector happens to run.
+def _walk_names(node: Any, path: str, is_leaf: Callable[[Any], bool] | None,
+                out: list[tuple[str, Any]]) -> None:
+    if node is None:
+        return
+    if isinstance(node, dict) and not (is_leaf and is_leaf(node)):
+        for k in sorted(node):
+            _walk_names(node[k], f"{path}[{k!r}]", is_leaf, out)
+        return
+    out.append((path, node))
 
 
 def leaves(tree: Any) -> list[Any]:

@@ -28,6 +28,12 @@ EXECUTOR_MODULES = {
         "database", "server", "generator", "cfs", "http_server")),
 }
 
+# the launchers and the dry-run plane's cells and plan
+LAUNCH_MODULES = {
+    "repro_torch.launch.serve", "repro_torch.launch.mesh", "repro_torch.launch.sharding_plan",
+    "repro_torch.configs.shapes", "repro_torch.models.sharding",
+}
+
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
@@ -49,9 +55,10 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
-    assert len(imported) >= 57  # every module really was imported
+    assert len(imported) >= 69  # every module really was imported
     assert TRAINING_MODULES <= imported, TRAINING_MODULES - imported
     assert EXECUTOR_MODULES <= imported, EXECUTOR_MODULES - imported
+    assert LAUNCH_MODULES <= imported, LAUNCH_MODULES - imported
 
 
 def test_no_source_file_imports_jax_or_reference():
