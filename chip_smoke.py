@@ -52,16 +52,27 @@ Phases, each of which exits non-zero when it fails:
      ``[xattn-decode]``: B=1, a 300-token prompt, 16 decode steps held to
      the forward (a float32 copy of the weights at ``XATTN_DECODE_ATOL``,
      the bf16 distances printed), while the forward on another request's
-     memory must fall outside that bar;
+     memory must fall outside that bar. On stablelm-3b's weights,
+     ``[dryrun]``: a prefill of 4 x 2,048 and one decode step at position
+     2,048 (a cache of 2,064), each traced by the dry-run
+     (``launch.dryrun_lib.run_cell``) on a (1, 1) mesh of fake CUDA
+     tensors, then run for real through ``make_prefill`` and
+     ``make_serve_step``: ``FlopCounterMode``'s FLOPs equal to the trace's,
+     the predicted peak within ``DRYRUN_PEAK_RTOL`` of the measured, B1
+     32 times in the prefill through ``repro_torch::flash_attention`` and
+     never in the decode step, greedy tokens at a position tensor equal to
+     the served ones, and each cell's measured roofline fraction;
   5. granite, rwkv6, jamba (with and without experts), mixtral, starcoder2,
      qwen2.5, deepseek, llama-vision and seamless (smoke, f32) on the card
      (kernels) against the CPU (plain twins) on the same weights (and
      memory): logits, greedy tokens and exact launch counts;
-  6. ``[grad]``: flash attention under grad (``FlashAttentionFn``): one
-     kernel launch per forward, the kernel's own output, and dq/dk/dv
-     against autograd through the plain twin on the card; the same for
-     the WKV and scan kernels under grad (``WkvFn``, ``MambaScanFn``), at
-     their f32 bar and at the decay clip's top (w0 = 4); the attention
+  6. ``[grad]``: flash attention under grad (the custom op's gradient,
+     which recomputes through the twin): one kernel launch per forward,
+     the kernel's own output, and dq/dk/dv against autograd through the
+     plain twin on the card; the same for the WKV and scan ops under grad
+     (``ops.rwkv6_chunked``, ``ops.mamba_chunk_scan`` at the model's
+     layout, as the models call them), at their f32 bar and at the decay
+     clip's top (w0 = 4); the attention
      backward's recomputation timed at stablelm's training shape;
   7. ``[train-full]``: stablelm-3b at full width and depth (bf16, remat
      "full", AdamW, B=4, S=1024, 2 microbatches) takes 3 steps of
@@ -70,7 +81,9 @@ Phases, each of which exits non-zero when it fails:
      launches a step (32 layers, forward and recomputation, per
      microbatch); step time, tokens/s, peak memory, a profiled step's
      device busy time and idle share, and a breakdown (forward, backward,
-     the recomputation through the twin, the optimizer update);
+     the recomputation through the twin, the optimizer update); then
+     ``[dryrun]``'s train cell: the trace of this step against its
+     measured time and peak;
   8. ``[continuum]``: the reference's main path on the card at smoke size
      in float32 through ``runtime.train_loop``: ``prepare_data``, ``train``
      crashing at step 3 and resuming from ``latest.json``, ``evaluate``, and
@@ -317,6 +330,16 @@ MAMBA_GRAD_CASES = [("jamba smoke train step", 4, 64, 128, 4, 64, torch.float32)
                     ("bf16 x, N=16, T=120", 2, 120, 512, 16, 60, torch.bfloat16)]
 # [train-full]: stablelm-3b, B=4, S=1024, 2 microbatches, 3 steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 4, 1024, 2, 3
+# [dryrun]: stablelm-3b full in bf16, three cells one card holds, each
+# traced on a (1, 1) mesh of fake CUDA tensors and run for real; (name,
+# seq_len, batch, kind): a prefill of 4 x 2,048; one decode step of 4 at
+# position 2,048 against a cache of 2,064; [train-full]'s own step
+DRYRUN_CELLS = [("dryrun_prefill", 2048, 4, "prefill"), ("dryrun_decode", 2064, 4, "decode"),
+                ("dryrun_train", TRAIN_SEQ, TRAIN_BATCH, "train")]
+DRYRUN_DECODE_POS = 2048
+DRYRUN_PEAK_RTOL = 0.20  # predicted peak (arguments + temporaries) against the measured
+# the autograd node of B1's custom op (torch names it after the op)
+B1_BACKWARD_NODE = "repro_torch_flash_attention"
 # [continuum]: the reference handlers' smoke run, cut to 6 steps of 4 x 64.
 # It turns deterministic algorithms on, and cuBLAS is deterministic only
 # with a fixed workspace, set before CUDA starts: so it runs in a process
@@ -1426,18 +1449,12 @@ def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> dict[str
 def wkv_bound(bh: int, t: int, dk: int, dv: int, chunk: int) -> tuple[float, int, float, int]:
     """(ms, operations, ms, bytes): the least time for the operations at the
     float32 peak outside the tensor cores, and for the bytes (each input
-    read once, each output written once) at the memory rate."""
-    c, n = chunk, t // chunk
-    per_chunk = (
-        2 * c * dk  # cum, cum_prev
-        + c * (c - 1) // 2 * dk * 5  # pairwise decay scores: sub, exp, 2 mul, add
-        + 3 * c * dk  # the bonus diagonal
-        + c * (c + 1) // 2 * dv * 2  # scores times v
-        + 2 * c * dk + 2 * c * dk * dv  # r * exp(cum_prev), times S
-        + 3 * c * dk + dk  # k * exp(cum_C - cum), exp(cum_C)
-        + dk * dv * (1 + 2 * c)  # the state update
-    )
-    ops = bh * n * per_chunk
+    read once, each output written once) at the memory rate. The
+    operations are ``rwkv6.operations``, which the custom op's count
+    (``repro_torch::rwkv6_chunked``) also gives."""
+    from repro_torch.kernels import rwkv6 as wkv
+
+    ops = wkv.operations(bh, t, dk, dv, chunk)
     nbytes = 4 * (bh * t * (3 * dk + dv) + bh * dk + bh * dk * dv  # r k logw v, u, s0
                   + bh * t * dv + bh * dk * dv)  # out, s_final
     return ops / PEAK_F32_FLOPS * 1e3, ops, nbytes / PEAK_BYTES_S * 1e3, nbytes
@@ -1493,8 +1510,11 @@ def mamba_bound(b: int, t: int, di: int, n: int,
     for about 7 float32 operations per (b, t, d, n) (multiply, exp,
     multiply, multiply-add into h, multiply-add into y) at the float32 peak
     outside the tensor cores, and for the bytes (each input read once, x at
-    ``x_bytes`` an element, each output written once) at the memory rate."""
-    ops = 7 * b * t * di * n
+    ``x_bytes`` an element, each output written once) at the memory rate
+    (``mamba_scan.operations``, the custom op's count)."""
+    from repro_torch.kernels import mamba_scan as ms
+
+    ops = ms.operations(b, t, di, n)
     nbytes = 4 * (2 * b * t * di + 2 * b * t * n + di * n + 2 * b * di * n) + x_bytes * b * t * di
     return ops / PEAK_F32_FLOPS * 1e3, ops, nbytes / PEAK_BYTES_S * 1e3, nbytes, b * t * di * n
 
@@ -1583,12 +1603,8 @@ def flash_timing_row(label: str, shape: tuple[int, ...], gen: torch.Generator,
     err = (out.float() - ref.float()).abs().max().item()
     check(torch.allclose(out.float(), ref.float(), atol=atol, rtol=rtol),
           f"flash timing shape {label} disagrees: {err} (atol {atol}, rtol {rtol})")
-    if causal:
-        w = window if window > 0 else s
-        pairs = w * (w + 1) / 2 + (s - w) * w  # query i sees min(i + 1, window) keys
-    else:
-        pairs = s * s_kv
-    flops = 4 * b * h * d * pairs  # q.k and p.v over the visible pairs
+    pairs = fa.attention_pairs(s, s_kv, causal, window)
+    flops = 4 * b * h * d * pairs  # q.k and p.v over the visible pairs (fa.operations)
     nbytes = 2 * b * d * (2 * h * s + 2 * kv * s_kv)  # q, k, v read once and o written once, bf16
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_S * 1e3
     padding = {}
@@ -1672,9 +1688,11 @@ def grad_fn_names(t: torch.Tensor) -> list[str]:
 
 def phase_grad() -> dict:
     """Flash attention under grad on the card: ``ops.flash_attention`` goes
-    through ``FlashAttentionFn``, launches the kernel once and returns its
-    output; dq/dk/dv match autograd through the plain twin on the card.
-    Then ``WkvFn`` and ``MambaScanFn`` (``phase_grad_scans``). Returns the
+    through the custom op ``repro_torch::flash_attention``, whose gradient
+    (``::flash_attention_backward``) recomputes through the plain twin; it
+    launches the kernel once and returns its output; dq/dk/dv match
+    autograd through the plain twin on the card. Then the WKV and scan
+    ops (``phase_grad_scans``). Returns the
     worst errors and the attention backward's time at stablelm's training
     shape."""
     from repro_torch.kernels import flash_attention as fa
@@ -1691,7 +1709,8 @@ def phase_grad() -> dict:
         live = [t.clone().requires_grad_() for t in (q, k, v)]
         before = fa.launches
         out = ops.flash_attention(*live, causal=True, window=window)
-        check(fa.launches == before + 1 and "FlashAttentionFnBackward" in grad_fn_names(out),
+        check(fa.launches == before + 1
+              and any(B1_BACKWARD_NODE in name for name in grad_fn_names(out)),
               f"{label}: {fa.launches - before} launches, graph {grad_fn_names(out)}")
         with torch.no_grad():
             kernel_out = ops.flash_attention(q, k, v, causal=True, window=window)
@@ -1709,7 +1728,7 @@ def phase_grad() -> dict:
         print(f"[grad] {label}: B={b} S={s} H={h} KV={kv} D={d} window={window} "
               f"{str(dtype).split('.')[-1]} max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} "
               f"dv {errs[2]:.3e} (atol {atol}, rtol {rtol}) {'ok' if ok else 'FAIL'}")
-        check(ok, f"FlashAttentionFn gradients disagree with the plain twin's: {label}")
+        check(ok, f"B1's gradients disagree with the plain twin's: {label}")
         worst = max(worst, *errs)
     print(f"[grad] largest gradient error against autograd through the plain twin: {worst:.3e}")
 
@@ -1737,18 +1756,20 @@ def phase_grad() -> dict:
     return {"worst_err": worst, "fwd_ms": fwd_ms, "bwd_ms": both_ms - fwd_ms, **scan_worst}
 
 
-def grads_against_twin(label: str, fn, twin, args: tuple[torch.Tensor, ...], mod,
+def grads_against_twin(label: str, fn, twin, args: tuple[torch.Tensor, ...], mod, node: str,
                        names: str) -> float:
-    """``fn`` (the kernel's autograd Function) under grad launches its
-    kernel once and none in the backward; its gradients equal autograd
-    through ``twin`` on the card at the kernels' f32 bar and are finite.
-    Returns the largest difference."""
+    """``fn`` (the kernel's wrapper in ``ops``) under grad launches its
+    kernel once, through its custom op (the autograd node ``node``), and
+    none in the backward; its gradients equal autograd through ``twin`` on
+    the card at the kernels' f32 bar and are finite. Returns the largest
+    difference."""
     gen = torch.Generator(device="cuda").manual_seed(len(label))
     live = [a.clone().requires_grad_() for a in args]
     before = mod.launches
     outs = fn(*live)
-    check(mod.launches == before + 1 and outs[0].grad_fn is not None,
-          f"{label}: {mod.launches - before} launches, grad_fn {outs[0].grad_fn}")
+    graph = grad_fn_names(outs[0])
+    check(mod.launches == before + 1 and any(node in name for name in graph),
+          f"{label}: {mod.launches - before} launches, graph {graph}")
     cots = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
     got = torch.autograd.grad(sum((o.float() * c).sum() for o, c in zip(outs, cots)), live)
     check(mod.launches == before + 1, f"{label}: the backward launched the kernel")
@@ -1766,33 +1787,63 @@ def grads_against_twin(label: str, fn, twin, args: tuple[torch.Tensor, ...], mod
     return max(errs)
 
 
+def wkv_model_inputs(b: int, t: int, h: int, k: int, gen: torch.Generator,
+                     logw: float | None = None) -> tuple[torch.Tensor, ...]:
+    """``wkv_inputs``' draw at the model's layout, as ``ops.rwkv6_chunked``
+    takes it: r, k, v, logw (B, T, H, K), one bonus u (H, K) for every
+    batch row, s0 (B, H, K, V)."""
+    r, kk, v, lw, u, s0 = wkv_inputs(b, t, h, k, gen, True, logw)
+    return (*(x.reshape(b, h, t, k).transpose(1, 2).contiguous() for x in (r, kk, v, lw)),
+            u.reshape(b, h, k)[0].contiguous(), s0.reshape(b, h, k, k))
+
+
+def wkv_twin_model(r, k, v, logw, u, s0, chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``rwkv6_plain`` at the model's layout: flattened to (B·H, T, K) and
+    back here, apart from the op's own layout code."""
+    from repro_torch.kernels import rwkv6 as wkv
+
+    b, t, h, dk = r.shape
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(b * h, t, x.shape[-1])
+
+    out, s = wkv.rwkv6_plain(flat(r), flat(k), flat(v), flat(logw),
+                             u[None].expand(b, h, dk).reshape(b * h, 1, dk),
+                             s0.reshape(b * h, dk, -1), chunk=chunk)
+    return out.reshape(b, h, t, -1).transpose(1, 2), s.reshape(b, h, dk, -1)
+
+
 def phase_grad_scans(gen: torch.Generator) -> dict:
-    """``WkvFn`` and ``MambaScanFn``, applied as ``ops`` applies them under
-    grad, against autograd through their plain twins on the card; then one
-    layer's backward timed at the smoke train step."""
+    """``ops.rwkv6_chunked`` and ``ops.mamba_chunk_scan`` under grad, at
+    the model's layout as the models call them (their custom ops, whose
+    backward ops recompute through the twins), against autograd through
+    their plain twins on the card; then one layer's backward timed at the
+    smoke train step."""
     from repro_torch.kernels import mamba_scan as ms
+    from repro_torch.kernels import ops
     from repro_torch.kernels import rwkv6 as wkv
 
     worst = {"wkv_grad_err": 0.0, "mamba_grad_err": 0.0}
     timed_layers = {}
     for label, b, t, h, k, chunk, logw in WKV_GRAD_CASES:
-        args = wkv_inputs(b, t, h, k, gen, True, logw)
-        fn = lambda *a, c=chunk: wkv.WkvFn.apply(*a, c)  # noqa: E731
+        args = wkv_model_inputs(b, t, h, k, gen, logw)
+        fn = lambda *a, c=chunk: ops.rwkv6_chunked(*a, chunk=c)  # noqa: E731
         err = grads_against_twin(
-            f"WkvFn {label}: B={b} T={t} H={h} K=V={k} chunk {chunk}", fn,
-            lambda *a, c=chunk: wkv.rwkv6_plain(*a, chunk=c), args, wkv, "r k v logw u s0")
+            f"rwkv6_chunked {label}: B={b} T={t} H={h} K=V={k} chunk {chunk}", fn,
+            lambda *a, c=chunk: wkv_twin_model(*a, c), args, wkv, "repro_torch_rwkv6_chunked",
+            "r k v logw u s0")
         worst["wkv_grad_err"] = max(worst["wkv_grad_err"], err)
-        timed_layers.setdefault("WkvFn", (fn, args))
+        timed_layers.setdefault("rwkv6_chunked", (fn, args))
     for label, b, t, di, n, chunk, x_dtype in MAMBA_GRAD_CASES:
         args = mamba_inputs(b, t, di, n, gen, True, "reference", x_dtype)
-        fn = lambda *a, c=chunk, d=di: ms.MambaScanFn.apply(*a, c, d)  # noqa: E731
+        fn = lambda *a, c=chunk, d=di: ops.mamba_chunk_scan(*a, chunk=c, d_block=d)  # noqa: E731
         err = grads_against_twin(
-            f"MambaScanFn {label}: B={b} T={t} DI={di} N={n} chunk {chunk}", fn,
+            f"mamba_chunk_scan {label}: B={b} T={t} DI={di} N={n} chunk {chunk}", fn,
             lambda *a, c=chunk, d=di: ms.mamba_scan_plain(*a[:4], a[4].float(), a[5], chunk=c,
                                                           d_block=d),
-            args, ms, "dt B C A x h0")
+            args, ms, "repro_torch_mamba_chunk_scan", "dt B C A x h0")
         worst["mamba_grad_err"] = max(worst["mamba_grad_err"], err)
-        timed_layers.setdefault("MambaScanFn", (fn, args))
+        timed_layers.setdefault("mamba_chunk_scan", (fn, args))
 
     # one layer's backward at the smoke train step: the kernel forward, then
     # the recomputation through the twin
@@ -1810,6 +1861,183 @@ def phase_grad_scans(gen: torch.Generator) -> dict:
               f"forward + backward (recomputation through the plain twin) {both_ms:.4f} ms, so "
               f"the backward {both_ms - fwd_ms:.4f} ms")
     return worst
+
+
+def storage_bytes(tree) -> int:
+    """The bytes of the distinct storages of ``tree``'s tensors."""
+    from repro_torch.tree import leaves
+
+    seen = {}
+    for t in leaves(tree):
+        if isinstance(t, torch.Tensor):
+            seen[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+    return sum(seen.values())
+
+
+def dryrun_predict(name: str, seq_len: int, batch: int, kind: str, tcfg=None) -> dict:
+    """``run_cell`` of stablelm-3b full on a (1, 1) mesh of fake CUDA
+    tensors (torch's fake process group of one rank): the per-device FLOPs,
+    the predicted peak (arguments + temporaries) and the roofline terms.
+    Nothing is allocated, and no kernel launches."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.dryrun_lib import run_cell
+    from repro_torch.launch.mesh import MeshShape, fake_world, make_mesh
+
+    mods = kernel_modules()
+    before = {n: m.launches for n, m in mods.items()}
+    t0 = time.perf_counter()
+    with fake_world(1):
+        mesh = make_mesh(MeshShape((1, 1), ("data", "model")), "cuda")
+        rec = run_cell("stablelm-3b", ShapeConfig(name, seq_len, batch, kind), mesh, tcfg=tcfg)
+    wall = time.perf_counter() - t0
+    check(rec["status"] == "ok", f"[dryrun] {name}: {rec.get('error')}\n{rec.get('traceback')}")
+    check({n: m.launches for n, m in mods.items()} == before, f"[dryrun] {name}: the trace launched")
+    m = rec["memory_analysis"]
+    rec["predicted_peak"] = m["argument_size_in_bytes"] + m["temp_size_in_bytes"]
+    rec["predict_wall_s"] = wall
+    return rec
+
+
+def dryrun_line(name: str, rec: dict, flops: float | None, peak: int, ms: float,
+                launches: dict) -> dict:
+    """Print and return one cell's predicted against measured numbers; the
+    measured roofline fraction is the ideal time, ``model_flops`` at the
+    card's peak, over the measured time."""
+    r = rec["roofline"]
+    predicted_ms = max(r["compute_s"], r["memory_s"], r["collective_s"]) * 1e3
+    ideal_ms = r["model_flops_total"] / PEAK_BF16_FLOPS * 1e3
+    row = {"flops_predicted": r["flops_per_device"], "flops_measured": flops,
+           "peak_predicted": rec["predicted_peak"], "peak_measured": peak,
+           "peak_ratio": rec["predicted_peak"] / peak, "ms_predicted": predicted_ms,
+           "ms_measured": ms, "bottleneck": r["bottleneck"], "ideal_ms": ideal_ms,
+           "roofline_fraction_measured": ideal_ms / ms, "launches": launches,
+           "trace_s": rec["compile_s"], "predict_wall_s": rec["predict_wall_s"]}
+    print(f"[dryrun] {name}: FLOPs predicted {r['flops_per_device']:.6e} measured "
+          f"{'(not counted)' if flops is None else f'{flops:.6e}'}; peak predicted "
+          f"{rec['predicted_peak']} B measured {peak} B (ratio {row['peak_ratio']:.4f}); time "
+          f"predicted {predicted_ms:.3f} ms ({r['bottleneck']}-bound) measured {ms:.3f} ms; "
+          f"measured roofline fraction {ideal_ms / ms:.4f} (ideal {ideal_ms:.3f} ms); launches "
+          f"{launches}; trace {rec['compile_s']} s")
+    check(abs(row["peak_ratio"] - 1) <= DRYRUN_PEAK_RTOL,
+          f"[dryrun] {name}: predicted peak {rec['predicted_peak']} not within "
+          f"{DRYRUN_PEAK_RTOL:.0%} of the measured {peak}")
+    return row
+
+
+def dryrun_measure(fn, args_bytes: int) -> tuple[float, int, float, dict, object]:
+    """One untimed run of ``fn`` under ``FlopCounterMode`` (its FLOPs, its
+    peak: the arguments' bytes and what the run allocates above what was
+    allocated before it, and the kernels' launches), then the median of 3
+    runs timed by CUDA events."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    mods = kernel_modules()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = {n: m.launches for n, m in mods.items()}
+    with torch.inference_mode(), FlopCounterMode(display=False) as fc:
+        out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base + args_bytes
+    launches = {n: m.launches - before[n] for n, m in mods.items()}
+    by_op = {str(k): v for k, v in fc.get_flop_counts()["Global"].items()}
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.inference_mode():
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return fc.get_total_flops(), peak, sorted(times)[1], {"launches": launches, "by_op": by_op}, out
+
+
+def dryrun_serve_checks(engine, requests: list[dict], served: list[list[int]], tag: str) -> dict:
+    """``[dryrun]``'s prefill and decode cells on the stablelm-3b slice's
+    own weights: each predicted by ``run_cell`` on a (1, 1) mesh, then run
+    for real through ``make_prefill``/``make_serve_step``. FLOPs equal,
+    the peak within ``DRYRUN_PEAK_RTOL``, B1 32 a prefill through the
+    custom op and 0 a decode step; and greedy tokens of the first batch
+    through both step functions, at a 0-dim position tensor on the card,
+    equal to what the engine served."""
+    from repro_torch.serve.batcher import pad_prompts
+    from repro_torch.serve.engine import make_prefill, make_serve_step
+
+    cfg, params = engine.cfg, engine.params
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows, mods = {}, kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    p_name, p_seq, p_batch, _ = DRYRUN_CELLS[0]
+    d_name, d_len, d_batch, _ = DRYRUN_CELLS[1]
+    pred = {p_name: dryrun_predict(p_name, p_seq, p_batch, "prefill"),
+            d_name: dryrun_predict(d_name, d_len, d_batch, "decode")}
+
+    tokens = torch.randint(0, cfg.vocab_size, (p_batch, p_seq), generator=gen, device="cuda")
+    prefill_fn = make_prefill(cfg)
+    flops, peak, ms, info, _ = dryrun_measure(lambda: prefill_fn(params, {"tokens": tokens}),
+                                              storage_bytes(params) + storage_bytes(tokens))
+    check(flops == pred[p_name]["roofline"]["flops_per_device"],
+          f"[dryrun] prefill FLOPs {flops} != the trace's {pred[p_name]['roofline']['flops_per_device']}")
+    per_layer = 4 * p_batch * cfg.num_heads * cfg.head_dim * (p_seq * (p_seq + 1) // 2)
+    check(info["launches"] == {"flash_attention": cfg.num_layers, "rwkv6_wkv": 0, "mamba_scan": 0}
+          and info["by_op"].get("repro_torch.flash_attention") == cfg.num_layers * per_layer,
+          f"[dryrun] prefill: launches {info['launches']}, the op's FLOPs "
+          f"{info['by_op'].get('repro_torch.flash_attention')}: want B1 {cfg.num_layers} times "
+          f"through repro_torch::flash_attention")
+    rows[p_name] = dryrun_line(p_name, pred[p_name], flops, peak, ms, info["launches"])
+    del tokens
+
+    # decode: a real prefill of DRYRUN_DECODE_POS tokens grown to d_len, then one step
+    ctx = torch.randint(0, cfg.vocab_size, (d_batch, DRYRUN_DECODE_POS), generator=gen, device="cuda")
+    with torch.inference_mode():
+        logits, cache = make_prefill(cfg, d_len)(params, {"tokens": ctx})
+    tok = logits.argmax(-1)
+    pos = torch.tensor(DRYRUN_DECODE_POS, dtype=torch.int32, device="cuda")
+    step = make_serve_step(cfg)
+    del logits, ctx
+    flops, peak, ms, info, _ = dryrun_measure(
+        lambda: step(params, tok, cache, pos),
+        storage_bytes(params) + storage_bytes(cache) + storage_bytes(tok) + storage_bytes(pos))
+    check(flops == pred[d_name]["roofline"]["flops_per_device"],
+          f"[dryrun] decode FLOPs {flops} != the trace's {pred[d_name]['roofline']['flops_per_device']}")
+    check(all(n == 0 for n in info["launches"].values()),
+          f"[dryrun] decode step launched {info['launches']}, want none")
+    rows[d_name] = dryrun_line(d_name, pred[d_name], flops, peak, ms, info["launches"])
+    del cache
+
+    # greedy tokens of the first batch, the position a 0-dim tensor on the card
+    batch = torch.as_tensor(pad_prompts(requests[:4]), dtype=torch.long, device="cuda")
+    with torch.inference_mode():
+        logits, cache = make_prefill(cfg, engine.max_len)(params, {"tokens": batch})
+        out = [logits[:, -1].argmax(-1, keepdim=True)]
+        for i in range(NEW_TOKENS - 1):
+            p = torch.tensor(batch.shape[1] + i, dtype=torch.int32, device="cuda")
+            logits, cache = step(params, out[-1], cache, p)
+            out.append(logits[:, -1].argmax(-1, keepdim=True))
+    got = torch.cat(out, dim=1).tolist()
+    check(got == served[:4], f"[dryrun] tokens through make_prefill/make_serve_step at a tensor "
+                             f"position {got} differ from the served {served[:4]}")
+    print(f"[dryrun] greedy tokens of the first batch through make_prefill/make_serve_step, the "
+          f"position a 0-dim tensor on the card, equal the served ones: {got[0]}")
+    return {"dryrun": rows, "launches": {n: m.launches for n, m in mods.items()}}
+
+
+def phase_dryrun_train(train_stats: dict) -> dict:
+    """``[dryrun]``'s train cell: ``run_cell`` of ``[train-full]``'s step
+    (AdamW, remat "full", 2 microbatches) on a (1, 1) mesh, against the
+    step time and peak ``[train-full]`` measured (no step of its own)."""
+    from repro_torch.configs import TrainConfig
+
+    name, seq, batch, _ = DRYRUN_CELLS[2]
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-2, warmup_steps=0, total_steps=100,
+                       microbatches=TRAIN_MICRO)
+    rec = dryrun_predict(name, seq, batch, "train", tcfg)
+    ms = sorted(train_stats["step_s"])[len(train_stats["step_s"]) // 2] * 1e3
+    return dryrun_line(name, rec, None, train_stats["step_peak_bytes"], ms,
+                       {"flash_attention": TRAIN_MICRO * 2 * 32})
 
 
 def host_copy(tree: dict) -> list[torch.Tensor]:
@@ -1856,6 +2084,8 @@ def phase_train_full(grad_stats: dict) -> tuple[dict, dict]:
     data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
     step_fn = make_train_step(cfg, tcfg)
     per_step = cfg.num_layers * 2 * TRAIN_MICRO  # forward + remat recomputation, per microbatch
+    torch.cuda.synchronize()
+    other_bytes = torch.cuda.memory_allocated() - storage_bytes(state)  # not the step's
     torch.cuda.reset_peak_memory_stats()
     counts = {name: 0 for name in mods}
     losses, seconds = [], []
@@ -1906,18 +2136,19 @@ def phase_train_full(grad_stats: dict) -> tuple[dict, dict]:
                       and e.self_device_time_total > 0), key=lambda r: -r[2])
     stats = {"step_s": seconds, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / min(seconds),
              "steps_per_s": 1 / min(seconds), "peak_bytes": peak,
+             "step_peak_bytes": peak - other_bytes,
              "ce": [m["ce"] for m in losses], "grad_norm": [m["grad_norm"] for m in losses]}
     if kernels:
         busy_s = sum(r[2] for r in kernels) / 1e6
         b1_ms = sum(r[2] for r in kernels if "flash_fwd_" in r[0]) / 1e3
         b1_n = sum(r[1] for r in kernels if "flash_fwd_" in r[0])
-        # the autograd engine's event for each FlashAttentionFn backward
+        # the autograd engine's event for each backward of the B1 custom op
         # (the node's own event nests inside it: counting both doubles)
-        recompute_ms = sum(e.device_time_total for e in events if e.key == (
-            "autograd::engine::evaluate_function: FlashAttentionFnBackward")) / 1e3
+        recompute_ms = sum(e.device_time_total for e in events if e.key.startswith(
+            "autograd::engine::evaluate_function: ") and B1_BACKWARD_NODE in e.key) / 1e3
         print(f"{tag} profiled step: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, idle share "
               f"{1 - busy_s / wall_s:.4f} (profiler overhead included); B1 forward {b1_n}x "
-              f"{b1_ms:.3f} ms; recomputation through the twin under FlashAttentionFnBackward "
+              f"{b1_ms:.3f} ms; recomputation through the twin under the custom op's backward "
               f"{recompute_ms:.3f} ms")
         for name, count, us in kernels[:10]:
             print(f"{tag}   {us / 1e3:10.3f} ms {count:6d}x {us / 1e6 / busy_s:7.2%} {name[:90]}")
@@ -2072,8 +2303,8 @@ def train_launches(cfg) -> dict[str, int]:
 def phase_train_cross() -> dict:
     """Each of ``TRAIN_CROSS_CASES`` in float32: 3 steps on the card
     against the CPU from the same params and batches, for its optimizers
-    at 1 and 2 microbatches; the kernels of its path (B1, B2 under
-    ``WkvFn``, B3 under ``MambaScanFn``) launch on the card, the plain
+    at 1 and 2 microbatches; the kernels of its path (B1, B2, B3, each
+    through its custom op and its gradient) launch on the card, the plain
     twins run on the CPU. Returns the card's launch counts and the largest
     differences, per arch."""
     from repro_torch.configs import TrainConfig, get_config
@@ -2771,7 +3002,10 @@ def main() -> int:
     worst_wkv = phase_wkv_cases()
     worst_mamba = phase_mamba_cases()
     grad_stats = phase_grad()
-    stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32})
+    stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32},
+                                         after=dryrun_serve_checks)
+    dryrun_counts = stats.pop("launches")
+    dryrun_rows = stats.pop("dryrun")
     rwkv_counts, rwkv_stats = phase_slice("rwkv6-7b", "full", PRIME_PROMPT_LENS, {"rwkv6_wkv": 32})
     jamba_counts, jamba_stats = phase_slice("jamba-1.5-large-398b", "no-moe", PRIME_PROMPT_LENS,
                                             JAMBA_PER_PREFILL)
@@ -2800,6 +3034,7 @@ def main() -> int:
     cross_device_counts = {arch: phase_cross_device(arch, "smoke", 72, reseed_gates)
                            for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2")}
     train_counts, train_stats = phase_train_full(grad_stats)
+    dryrun_rows[DRYRUN_CELLS[2][0]] = phase_dryrun_train(train_stats)
     continuum_counts = child_phase("--continuum", "[continuum]")
     cross_counts, cross_worst = phase_train_cross()
     broker = Broker()
@@ -2823,7 +3058,8 @@ def main() -> int:
              "stablelm-3b executors-serve-full": serve_exec_counts,
              "stablelm-3b launch-serve": launch_serve_counts,
              "stablelm-3b launch-train": launch_train_counts,
-             "stablelm-3b launch-train-full": launch_full_counts}
+             "stablelm-3b launch-train-full": launch_full_counts,
+             "stablelm-3b dryrun": dryrun_counts}
     earlier = {name: sum(c[name] for c in paths.values()) for name in kernel_modules()}
     paths.update({"mixtral-8x7b half-depth": mixtral_counts, "mixtral-8x7b checks": swa_counts,
                   "deepseek-v3-671b two-moe": deepseek_counts,
@@ -2855,12 +3091,13 @@ def main() -> int:
     print(f"[done] training stablelm-3b {json.dumps(train_stats)}; flash attention at the training "
           f"shape: forward {grad_stats['fwd_ms']:.4f} ms, backward {grad_stats['bwd_ms']:.4f} ms a "
           f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's "
-          f"(WkvFn {grad_stats['wkv_grad_err']:.3e}, MambaScanFn "
+          f"(rwkv6_chunked {grad_stats['wkv_grad_err']:.3e}, mamba_chunk_scan "
           f"{grad_stats['mamba_grad_err']:.3e}); train cuda vs cpu {json.dumps(cross_worst)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
           f"{json.dumps(launch_full_stats)}")
+    print(f"[done] dryrun {json.dumps(dryrun_rows)}")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

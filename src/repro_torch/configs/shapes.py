@@ -11,7 +11,7 @@ architecture (40 in all):
 ``input_specs`` returns the inputs of a cell's step as tensors on the meta
 device: shapes and dtypes without memory, leaf for leaf the reference's
 ``ShapeDtypeStruct`` trees. ``pos`` is a 0-dim int32 tensor, as in the
-reference; the port's ``decode_step`` still takes a Python int.
+reference; the port's ``decode_step`` takes it as it is, or a Python int.
 """
 
 from __future__ import annotations

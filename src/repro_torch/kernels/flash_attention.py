@@ -22,10 +22,10 @@ S_kv; both versions refuse them otherwise.
   running max, denominator and accumulator; masked scores set to -1e30
   with p = 0; the final divide clamps the denominator at 1e-30.
 
-* ``FlashAttentionFn`` is the kernel on the training path, an
-  ``autograd.Function``: its forward launches the kernel, its backward
-  recomputes through the plain twin (the reference has no backward
-  kernel either).
+* ``plain_grads`` is the backward of every kernel launch: the
+  vector-Jacobian product of the plain twin, recomputed (the reference
+  has no backward kernel either). ``ops.flash_attention``'s custom op
+  takes it as its gradient.
 
 Unlike the Pallas wrapper, neither asserts ``S % block == 0``: both mask
 the ragged edge, because on the card the kernel also stands in for the
@@ -55,6 +55,22 @@ launches = 0
 def _check_lengths(s_q: int, s_kv: int, causal: bool, window: int) -> None:
     if s_q != s_kv and (causal or window > 0):
         raise ValueError(f"S_q={s_q} != S_kv={s_kv} takes neither the causal mask nor a window")
+
+
+def attention_pairs(s_q: int, s_kv: int, causal: bool = True, window: int = 0) -> int:
+    """The (query, key) pairs the mask leaves visible: query i sees
+    min(i + 1, window) keys under the causal mask, every key without it."""
+    if not causal:
+        return s_q * s_kv
+    w = min(window, s_q) if window > 0 else s_q
+    return w * (w + 1) // 2 + (s_q - w) * w
+
+
+def operations(b: int, h: int, s_q: int, s_kv: int, d: int, causal: bool = True,
+               window: int = 0) -> int:
+    """The kernel's floating-point operations: q·k and p·v over the
+    visible pairs, 2 each per pair and head-dim element."""
+    return 4 * b * h * d * attention_pairs(s_q, s_kv, causal, window)
 
 
 def flash_attention_plain(
@@ -165,38 +181,10 @@ def flash_attention_cuda(
     return o
 
 
-class FlashAttentionFn(torch.autograd.Function):
-    """The kernel with a gradient: ``ops.flash_attention`` takes this on a
-    CUDA tensor whenever grad mode is on and an input requires grad.
-
-    ``forward`` launches the hand-written kernel (``flash_attention_cuda``,
-    one launch counted) and saves q, k and v. ``backward`` recomputes
-    through ``flash_attention_plain`` on detached inputs under
-    ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of it; the
-    twin's GQA indexing (``repeat_interleave``) sums dk and dv over each
-    group of query heads. k and v may have a length of their own
-    (cross-attention), in the forward and the backward. The reference
-    trains on its differentiable XLA path and has no backward kernel, so
-    none is written here.
-
-    In bfloat16 the kernel rounds the probabilities to bf16 before p·v (as
-    the model-level reference does) while the twin keeps them in float32:
-    the gradients are those of the twin's function, and they agree with
-    the kernel's forward at the bf16 bar, not bit for bit.
-    """
-
-    @staticmethod
-    def forward(ctx, q, k, v, group: int, causal: bool, window: int, block_k: int):
-        out = flash_attention_cuda(q, k, v, group=group, causal=causal, window=window)
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = {"group": group, "causal": causal, "window": window, "block_k": block_k}
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = flash_attention_plain(*inputs, **ctx.opts)
-            grads = torch.autograd.grad(out, inputs, grad_out)
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)),
-                None, None, None, None)
+def plain_grads(grad_out: torch.Tensor, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                **opts) -> tuple[torch.Tensor, ...]:
+    """(dq, dk, dv): the backward of every kernel launch, through the plain
+    twin recomputed, by ``torch.func.vjp`` (which also runs inside a custom
+    op's implementation, below autograd)."""
+    _, vjp = torch.func.vjp(lambda *qkv: flash_attention_plain(*qkv, **opts), q, k, v)
+    return vjp(grad_out)

@@ -18,10 +18,10 @@ from ``h0``, each returning ``(y, h_final)`` in float32:
   numerics, chunk by chunk: ``da = exp(dt·a)``, ``dbx = dt·x·B`` as
   (B, C, DI, N), the in-chunk scan, ``h_all = acc_a·h + acc_b``,
   ``y = Σₙ h_all·C`` and the carried state, all in float32.
-* ``MambaScanFn`` is the kernel on the training path, an
-  ``autograd.Function``: its forward launches the kernel, its backward
-  recomputes through the plain twin (the reference has no backward
-  kernel either).
+
+Under grad, ``ops.mamba_chunk_scan``'s custom op launches the kernel and
+takes its gradient through the plain twin, recomputed (the reference has
+no backward kernel either).
 """
 
 from __future__ import annotations
@@ -41,6 +41,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "mamba_scan.cu"
 
 # Kernel launches since the last reset; callers set it to 0 to count a run.
 launches = 0
+
+
+def operations(b: int, t: int, di: int, n: int) -> int:
+    """About 7 float32 operations per (b, t, d, n): multiply, exp,
+    multiply, multiply-add into h, multiply-add into y."""
+    return 7 * b * t * di * n
 
 
 def chunk_prefix(da: torch.Tensor, dbx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -136,7 +142,7 @@ def mamba_scan_cuda(
     h0: torch.Tensor,  # (B, DI, N) float32
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raise on anything it does not take. Its
-    outputs carry no gradient: under grad, ``MambaScanFn`` launches it."""
+    outputs carry no gradient: under grad, ``ops.mamba_chunk_scan`` launches it."""
     global launches
     args = (dt, bmat, cmat, a, x, h0)
     if not (dt.is_cuda and all(v.device == dt.device for v in args)):
@@ -168,33 +174,3 @@ def mamba_scan_cuda(
         raise RuntimeError(f"mamba_scan kernel launch failed: CUDA error {err}")
     launches += 1
     return y, h_out
-
-
-class MambaScanFn(torch.autograd.Function):
-    """The kernel with a gradient: ``ops.mamba_chunk_scan`` takes this on a
-    CUDA tensor whenever grad mode is on and an input requires grad.
-
-    ``forward`` launches the kernel (``mamba_scan_cuda``, one launch
-    counted; x in float32 or bfloat16, cast on load) and saves its inputs.
-    ``backward`` recomputes through ``mamba_scan_plain`` at the model's
-    ``chunk`` and ``d_block`` on detached inputs, with ``x.float()`` as the
-    twin takes it, under ``torch.enable_grad()``, and returns
-    ``torch.autograd.grad`` of ``(y, h_final)``; dx comes back in x's
-    dtype through the cast.
-    """
-
-    @staticmethod
-    def forward(ctx, dt, bmat, cmat, a, x, h0, chunk: int, d_block: int):
-        y, h = mamba_scan_cuda(dt, bmat, cmat, a, x, h0)
-        ctx.save_for_backward(dt, bmat, cmat, a, x, h0)
-        ctx.tiles = {"chunk": chunk, "d_block": d_block}
-        return y, h
-
-    @staticmethod
-    def backward(ctx, grad_y, grad_h):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        dt, bmat, cmat, a, x, h0 = inputs
-        with torch.enable_grad():
-            y, h = mamba_scan_plain(dt, bmat, cmat, a, x.float(), h0, **ctx.tiles)
-            grads = torch.autograd.grad((y, h), inputs, (grad_y, grad_h))
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None, None)

@@ -20,10 +20,10 @@ on the (B·H, T, K) layout, each returning ``(out, s_final)``:
   ``where(s < t, exp(diff), 0)``: the same bits forward, but the masked
   entries' gradient stays 0 where ``exp(diff)`` overflows at strong decay
   (the reference's gradient there is 0·inf = NaN).
-* ``WkvFn`` is the kernel on the training path, an
-  ``autograd.Function``: its forward launches the kernel, its backward
-  recomputes through the plain twin (the reference has no backward
-  kernel either).
+
+Under grad, ``ops.rwkv6_chunked``'s custom op launches the kernel and
+takes its gradient through the plain twin, recomputed (the reference has
+no backward kernel either).
 """
 
 from __future__ import annotations
@@ -42,6 +42,23 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "rwkv6.cu"
 
 # Kernel launches since the last reset; callers set it to 0 to count a run.
 launches = 0
+
+
+def operations(bh: int, t: int, dk: int, dv: int, chunk: int) -> int:
+    """The WKV's float32 operations at ``chunk`` (all outside the tensor
+    cores): the in-chunk decays, the pairwise scores and the bonus, the
+    scores times v, the cross-chunk term and the state update."""
+    c, n = chunk, t // chunk
+    per_chunk = (
+        2 * c * dk  # cum, cum_prev
+        + c * (c - 1) // 2 * dk * 5  # pairwise decay scores: sub, exp, 2 mul, add
+        + 3 * c * dk  # the bonus diagonal
+        + c * (c + 1) // 2 * dv * 2  # scores times v
+        + 2 * c * dk + 2 * c * dk * dv  # r * exp(cum_prev), times S
+        + 3 * c * dk + dk  # k * exp(cum_C - cum), exp(cum_C)
+        + dk * dv * (1 + 2 * c)  # the state update
+    )
+    return bh * n * per_chunk
 
 
 def rwkv6_plain(
@@ -114,7 +131,7 @@ def rwkv6_cuda(
     s0: torch.Tensor,  # (BH, K, V)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; raise on anything it does not take. Its
-    outputs carry no gradient: under grad, ``WkvFn`` launches it."""
+    outputs carry no gradient: under grad, ``ops.rwkv6_chunked`` launches it."""
     global launches
     args = (r, k, v, logw, u, s0)
     if not (r.is_cuda and all(x.device == r.device for x in args)):
@@ -144,33 +161,3 @@ def rwkv6_cuda(
         raise RuntimeError(f"rwkv6 kernel launch failed: CUDA error {err}")
     launches += 1
     return out, s_final
-
-
-class WkvFn(torch.autograd.Function):
-    """The kernel with a gradient: ``ops.rwkv6_chunked`` takes this on a
-    CUDA tensor whenever grad mode is on and an input requires grad.
-
-    ``forward`` launches the kernel (``rwkv6_cuda``, one launch counted)
-    and saves its inputs. ``backward`` recomputes through ``rwkv6_plain``
-    at the model's ``chunk`` on detached inputs under
-    ``torch.enable_grad()`` and returns ``torch.autograd.grad`` of
-    ``(out, s_final)`` against both incoming gradients (training reads no
-    ``s_final``, so its gradient arrives as zeros). The kernel tiles time
-    with its own chunk, so the gradients are the twin's function's, equal
-    to the kernel's forward up to rounding.
-    """
-
-    @staticmethod
-    def forward(ctx, r, k, v, logw, u, s0, chunk: int):
-        out, s_final = rwkv6_cuda(r, k, v, logw, u, s0)
-        ctx.save_for_backward(r, k, v, logw, u, s0)
-        ctx.chunk = chunk
-        return out, s_final
-
-    @staticmethod
-    def backward(ctx, grad_out, grad_s):
-        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out, s_final = rwkv6_plain(*inputs, chunk=ctx.chunk)
-            grads = torch.autograd.grad((out, s_final), inputs, (grad_out, grad_s))
-        return (*(g if need else None for g, need in zip(grads, ctx.needs_input_grad)), None)

@@ -42,9 +42,19 @@ def _device_type() -> str:
     return "cpu" if dist.get_backend() in ("fake", "gloo") else "cuda"
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device_type: str | None = None) -> DeviceMesh:
+    """``device_type`` None: CPU tensors under the fake backend (or gloo),
+    the card's otherwise. A dry-run on the card's machine passes "cuda" to
+    trace fake CUDA tensors on the fake backend."""
     ms = production_mesh_shape(multi_pod=multi_pod)
-    return init_device_mesh(_device_type(), ms.shape, mesh_dim_names=ms.mesh_dim_names)
+    return make_mesh(ms, device_type)
+
+
+def make_mesh(ms: MeshShape, device_type: str | None = None) -> DeviceMesh:
+    """A ``DeviceMesh`` of ``ms``'s shape and names over the process group
+    (``device_type`` as for ``make_production_mesh``)."""
+    return init_device_mesh(device_type or _device_type(), ms.shape,
+                            mesh_dim_names=ms.mesh_dim_names)
 
 
 def make_smoke_mesh() -> DeviceMesh:

@@ -27,7 +27,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels import ops
-from .attention import blockwise_attention, einsum_promote, matmul_promote, project_in, project_out
+from .attention import (
+    blockwise_attention, cache_slot, einsum_promote, matmul_promote, position_tensor, project_in,
+    project_out, write_slot,
+)
 from .layers import apply_rope, rms_norm
 
 
@@ -66,7 +69,7 @@ def mla_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Te
     q_full = torch.cat([q_nope, q_rope], dim=-1)
     v_full = _pad_v(v, q_full.shape[-1])
     # head dims differ (qk 192 vs v 128 at full width): scaled by the qk dim
-    if q_full.is_cuda:
+    if ops.on_card(q_full):
         out = ops.flash_attention(q_full, k_full, v_full, causal=True)
     else:
         out = blockwise_attention(q_full, k_full, v_full, cfg.q_chunk)
@@ -85,21 +88,24 @@ def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype: torch.dtyp
     }
 
 
-def mla_decode(params: dict, x_t: torch.Tensor, cache: dict, pos: int,
+def mla_decode(params: dict, x_t: torch.Tensor, cache: dict, pos: int | torch.Tensor,
                cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
-    """Absorbed decode of one token (x_t: (B, 1, d)): score and value paths
-    stay in the latent space. Writes this token's latent and RoPE key into
-    the cache tensors in place (the reference returns updated copies)."""
+    """Absorbed decode of one token (x_t: (B, 1, d)) at ``pos``, an int or
+    a 0-dim tensor: score and value paths stay in the latent space. Writes
+    this token's latent and RoPE key into the cache tensors in place (the
+    reference returns updated copies)."""
     m = cfg.mla
-    pos_arr = torch.full((1,), pos, device=x_t.device)  # a fill: no host copy, no sync
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(x_t.device)
+    pos_arr = position_tensor(pos, x_t.device)
     q_nope, q_rope = _project_q(params, x_t, cfg, pos_arr)  # (B, 1, H, dn / dr)
     c_t, kr_t = _project_kv_latent(params, x_t, cfg, pos_arr)
 
     c_kv, k_rope = cache["c_kv"], cache["k_rope"]
     ln = c_kv.shape[1]
-    slot = min(pos, ln - 1)  # where dynamic_update_slice clamps the start
-    c_kv[:, slot : slot + 1].copy_(c_t)
-    k_rope[:, slot : slot + 1].copy_(kr_t)
+    slot = cache_slot(pos, ln, ring=False)
+    write_slot(c_kv, slot, c_t)
+    write_slot(k_rope, slot, kr_t)
 
     # absorption: q_lat[h] = q_nope[h] @ wk_b[:, h, :]^T, in the latent space
     q_lat = einsum_promote("bshk,rhk->bshr", q_nope, params["wk_b"])  # (B, 1, H, r)

@@ -54,6 +54,7 @@ from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .layers import activate, apply_norm, apply_rope
+from .sharding import shard_activation
 
 # ---------------------------------------------------------------------------
 # Layouts
@@ -142,7 +143,9 @@ def _mlp_fwd(mlp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gated = "w_gate" in mlp
     gate = attn.matmul_promote(h, mlp["w_gate"] if gated else mlp["w_in"])
     up = attn.matmul_promote(h, mlp["w_in"]) if gated else None
-    return attn.matmul_promote(activate(gate, up, cfg.activation), mlp["w_out"])
+    act = shard_activation(activate(gate, up, cfg.activation), ("batch", "seq", "ffn"),
+                           cfg)
+    return attn.matmul_promote(act, mlp["w_out"])
 
 
 def _bidir_attn(params: dict, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
@@ -159,6 +162,14 @@ def _cross_cache(params: dict, memory: torch.Tensor) -> dict:
     as the reference builds them (ROADMAP C20)."""
     return {"xk": attn.project_in(memory, params["wk"]),
             "xv": attn.project_in(memory, params["wv"])}
+
+
+def _residual(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The residual stream's constraint (batch on the data axes), after every
+    sub-layer's add: the reference sets it after each block, and a DTensor
+    also needs the row-parallel output's partial sum reduced before the
+    next norm."""
+    return shard_activation(x, ("batch", "seq", "embed_noshard"), cfg)
 
 
 def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -184,10 +195,10 @@ def _block_fwd(bdef: BlockDef, bp: dict, x: torch.Tensor, cfg: ModelConfig,
     else:
         raise ValueError(bdef.mixer)
     out, cache = res if return_cache else (res, None)
-    x = x + out
+    x = _residual(x + out, cfg)
     if bdef.mixer == "attn_x":  # seamless decoder: the cross-attention sub-layer
         h = apply_norm(x, bp["norm_x"], cfg.norm, cfg.norm_eps)
-        x = x + attn.cross_attn_fwd(bp["xattn"], h, memory, cfg)
+        x = _residual(x + attn.cross_attn_fwd(bp["xattn"], h, memory, cfg), cfg)
         if return_cache:
             cache.update(_cross_cache(bp["xattn"], memory))
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
@@ -214,6 +225,7 @@ def _group_fwd(layout: Layout, gparams: dict, x: torch.Tensor, cfg: ModelConfig,
     for i, bdef in enumerate(layout.group):
         x, aux, gcache[f"b{i}"] = _block_fwd(bdef, gparams[f"b{i}"], x, cfg, positions,
                                              return_cache, memory)
+        x = _residual(x, cfg)
         aux_sum = _add_aux(aux_sum, aux)
     return x, aux_sum, gcache
 
@@ -331,7 +343,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, return_cache: bool =
     ``mtp_logits`` takes.
     """
     tokens = batch["tokens"].long()
-    x = params["embed"][tokens].to(dtype_of(cfg.compute_dtype))
+    x = F.embedding(tokens, params["embed"]).to(dtype_of(cfg.compute_dtype))
+    x = shard_activation(x, ("batch", "seq", "embed_noshard"), cfg)
     positions = torch.arange(tokens.shape[1], device=x.device)
     memory = _memory_from_batch(params, cfg, batch)
     if cfg.dense_prefix_layers > 0:
@@ -357,7 +370,8 @@ def mtp_logits(params: dict, cfg: ModelConfig, hidden: torch.Tensor,
     Returns (B, S-1, V) logits, aligned with the targets t+2."""
     mtp = params["mtp"]
     h = hidden[:, :-1]  # positions 0..S-2
-    nxt = params["embed"][tokens[:, 1:].long()].to(h.dtype)  # embed of t+1
+    nxt = F.embedding(tokens[:, 1:].long(), params["embed"]).to(h.dtype)  # embed of t+1
+    nxt = shard_activation(nxt, ("batch", "seq", "embed_noshard"), cfg)
     both = torch.cat([apply_norm(h, mtp["norm_in"], cfg.norm, cfg.norm_eps), nxt], dim=-1)
     x = attn.matmul_promote(both, mtp["proj"])
     positions = torch.arange(x.shape[1], device=x.device)
@@ -452,8 +466,8 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, mem_len: int = 0)
 # ---------------------------------------------------------------------------
 
 
-def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: int,
-                  cfg: ModelConfig) -> torch.Tensor:
+def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict,
+                  pos: int | torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One token through one block. ``cache`` holds views of this layer's
     slice of the stacked cache; every mixer writes into them in place."""
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
@@ -471,10 +485,10 @@ def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict, pos: i
         out, _ = ssm_mod.mamba_decode(bp["mixer"], h, {"h": cache["h"], "conv": cache["conv"]}, cfg)
     else:
         raise ValueError(bdef.mixer)
-    x = x + out
+    x = _residual(x + out, cfg)
     if bdef.mixer == "attn_x":
         h = apply_norm(x, bp["norm_x"], cfg.norm, cfg.norm_eps)
-        x = x + _xattn_decode(bp["xattn"], h, cache)
+        x = _residual(x + _xattn_decode(bp["xattn"], h, cache), cfg)
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
     if bdef.mlp == "dense":
         return x + _mlp_fwd(bp["mlp"], h, cfg)
@@ -499,17 +513,20 @@ def _xattn_decode(params: dict, h: torch.Tensor, cache: dict) -> torch.Tensor:
 
 
 def _decode_stack(layout: Layout, groups_params: dict, layer_caches: dict, x: torch.Tensor,
-                  pos: int, cfg: ModelConfig) -> torch.Tensor:
+                  pos: int | torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     for g in range(layout.num_groups):
         gparams = map_leaves(lambda p: p[g], groups_params)
         for i, bdef in enumerate(layout.group):
             lcache = map_leaves(lambda c: c[g], layer_caches[f"b{i}"])
-            x = _block_decode(bdef, gparams[f"b{i}"], x, lcache, pos, cfg)
+            x = _residual(_block_decode(bdef, gparams[f"b{i}"], x, lcache, pos, cfg), cfg)
     return x
 
 
-def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict, pos: int):
-    """One token for the whole batch. tokens: (B, 1). Returns (logits, cache).
+def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dict,
+                pos: int | torch.Tensor):
+    """One token for the whole batch at position ``pos``, a Python int or a
+    0-dim integer tensor (the dry-run's cells pass the tensor, which never
+    reaches the host). tokens: (B, 1). Returns (logits, cache).
 
     Unlike the reference's pure step, this one writes the cache it is
     given and returns that same object: each group's slice is a view of
@@ -519,7 +536,8 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor, cache: dic
     clones it first, ``map_leaves(torch.clone, cache)`` (ROADMAP C21). The
     dense prefix runs first, on its own ``prefix_layers``.
     """
-    x = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    x = F.embedding(tokens.long(), params["embed"]).to(dtype_of(cfg.compute_dtype))
+    x = shard_activation(x, ("batch", "seq", "embed_noshard"), cfg)
     if cfg.dense_prefix_layers > 0:
         x = _decode_stack(prefix_layout(cfg), params["prefix_groups"], cache["prefix_layers"], x,
                           pos, prefix_cfg(cfg))

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from .attention import einsum_promote, matmul_promote
 from .layers import activate
+from .sharding import as_contiguous, grad_as_placed, shard_activation, split_sharded
 
 
 def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
@@ -78,17 +79,29 @@ def moe_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig) -> tuple[torch.Tens
     group = min(cfg.moe.group_size, b * s)
     tokens = x.reshape(b * s, d)
     pad = (-tokens.shape[0]) % group
+    # a dry-run's DTensor: the token dim stays sharded only where its shards
+    # hold whole groups (and nothing is padded)
+    tokens = split_sharded(tokens, 0, 1 if pad else tokens.shape[0] // group)
     if pad:
         tokens = F.pad(tokens, (0, 0, 0, pad))
     grouped = tokens.reshape(-1, group, d)  # (G, group, d)
 
     dispatch, combine, aux = _route(grouped, params["router"], cfg)
+    # a dry-run's DTensors: the experts stay sharded through dispatch and
+    # combine, as the expert weights are (expert parallelism)
+    dispatch, combine = (shard_activation(grad_as_placed(t), ("batch", None, "experts", None), cfg)
+                         for t in (dispatch, combine))
     dtype = x.dtype
-    expert_in = torch.einsum("gsec,gsd->gecd", dispatch.to(dtype), grouped)
-    gate = einsum_promote("gecd,edf->gecf", expert_in, params["w_gate"])
-    up = einsum_promote("gecd,edf->gecf", expert_in, params["w_up"])
-    expert_out = einsum_promote("gecf,efd->gecd", activate(gate, up, cfg.activation),
-                                params["w_down"])
+    expert_axes = ("batch", "experts", None, None)
+    expert_in = shard_activation(
+        grad_as_placed(torch.einsum("gsec,gsd->gecd", dispatch.to(dtype), grouped)), expert_axes,
+        cfg)
+    gate, up = (grad_as_placed(einsum_promote("gecd,edf->gecf", expert_in, params[w]))
+                for w in ("w_gate", "w_up"))
+    act = as_contiguous(activate(gate, up, cfg.activation))
+    expert_out = shard_activation(
+        grad_as_placed(einsum_promote("gecf,efd->gecd", act, params["w_down"])), expert_axes,
+        cfg)
     out = einsum_promote("gsec,gecd->gsd", combine.to(dtype), expert_out)
     out = out.reshape(-1, d)[: b * s].reshape(b, s, d)
 

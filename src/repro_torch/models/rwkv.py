@@ -19,6 +19,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from .attention import matmul_promote
 from .layers import group_norm_heads, silu
+from .sharding import shard_activation, split_sharded
 
 _MIX_NAMES = ("r", "k", "v", "w", "g")
 
@@ -52,7 +53,7 @@ def _ddlerp(params: dict, x: torch.Tensor, xs: torch.Tensor) -> dict[str, torch.
     dx = xs - x
     xx = x + dx * params["mu_x"].to(x.dtype)
     lora = torch.tanh(matmul_promote(xx, params["mix_a"]))
-    lora = lora.unflatten(-1, (5, lm))  # (B, T, 5, lm)
+    lora = split_sharded(lora, -1, 5).unflatten(-1, (5, lm))  # (B, T, 5, lm)
     dyn = torch.einsum("btnl,nld->btnd", lora, params["mix_b"].to(lora.dtype))  # (B, T, 5, d)
     out = {}
     for i, name in enumerate(_MIX_NAMES):
@@ -124,6 +125,8 @@ def rwkv_time_mix_fwd(
     v = matmul_promote(mixed["v"], params["wv"])
     g = silu(matmul_promote(mixed["g"], params["wg"]))
     logw = _decay(params, mixed["w"])  # (B, T, d) float32
+    # batch stays on (pod, data) and the channels on model through the WKV
+    r, k, v, logw = (shard_activation(a, ("batch", "seq", "inner"), cfg) for a in (r, k, v, logw))
 
     def split_heads(a: torch.Tensor) -> torch.Tensor:
         return a.reshape(bsz, t, h, hs)
@@ -136,7 +139,7 @@ def rwkv_time_mix_fwd(
         s0 = state["wkv"]
     else:
         s0 = torch.zeros((bsz, h, hs, hs), dtype=torch.float32, device=x.device)
-    if rh.is_cuda or cfg.use_pallas:
+    if ops.on_card(rh) or cfg.use_pallas:
         out, s_final = ops.rwkv6_chunked(rh, kh, vh, wh, u, s0, chunk=c)
     else:
         out, s_final = _wkv_chunked(rh, kh, vh, wh, u, s0, c)

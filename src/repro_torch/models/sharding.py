@@ -27,13 +27,28 @@ rule table here follows.
 
 from __future__ import annotations
 
-from typing import Any
+import contextlib
+import threading
+from typing import TYPE_CHECKING, Any, Iterator
 
 import torch
-from torch.distributed.tensor import Placement, Replicate, Shard
+from torch.distributed.tensor import DTensor, Placement, Replicate, Shard
 
 from ..tree import map_leaves
-from .spec import ParamLeaf
+
+if TYPE_CHECKING:
+    from .spec import ParamLeaf
+
+
+
+def __getattr__(name: str):
+    # ``ParamLeaf`` for importers of this module, loaded late: the models
+    # import this module, and ``spec`` imports the models
+    if name == "ParamLeaf":
+        from .spec import ParamLeaf
+        return ParamLeaf
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 Rules = dict[str, Any]  # logical name -> mesh axis | tuple | None
 AxisSpec = tuple  # per tensor dim: None | mesh axis | tuple of mesh axes
@@ -174,3 +189,109 @@ def param_placements(spec: Any, rules: Rules, mesh) -> Any:
             _divisible(leaf.shape, resolve_axes(leaf.axes, rules, mesh), mesh), mesh)
 
     return map_leaves(per_leaf, spec)
+
+
+_MESH_CTX = threading.local()
+
+
+@contextlib.contextmanager
+def activation_mesh(mesh) -> Iterator[None]:
+    """Make ``mesh`` the one ``shard_activation`` constrains to while a
+    dry-run traces a cell on it (the reference's context around lowering)."""
+    prev = getattr(_MESH_CTX, "mesh", None)
+    _MESH_CTX.mesh = mesh
+    try:
+        yield
+    finally:
+        _MESH_CTX.mesh = prev
+
+
+def current_activation_mesh():
+    return getattr(_MESH_CTX, "mesh", None)
+
+
+def shard_activation(x: torch.Tensor, axes: tuple[str | None, ...], cfg) -> torch.Tensor:
+    """Redistribute the DTensor ``x`` to the placements of its logical
+    ``axes`` (where they divide its dims), as the reference's
+    ``with_sharding_constraint`` by logical names, under ``cfg``'s rules
+    (resolved only then). A no-op outside ``activation_mesh`` or on a
+    plain tensor. Where no axis shards, the
+    reference sets no constraint: only a pending partial sum is reduced
+    (a vocab-parallel embedding's), the shards stay as they are."""
+    mesh = current_activation_mesh()
+    if mesh is None or not isinstance(x, DTensor):
+        return x
+    spec = _divisible(tuple(x.shape), resolve_axes(axes, rules_for(cfg), mesh), mesh)
+    if all(s is None for s in spec):
+        placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    else:
+        placements = axes_to_placements(spec, mesh)
+    if tuple(x.placements) == placements:
+        return x
+    out = x.redistribute(mesh, placements)
+    # a partial sum reduced here (a vocab-parallel embedding's masked one)
+    # takes its gradient back only whole, as Megatron's all-reduce in a
+    # column-parallel layer's backward hands it over
+    return grad_as_placed(out) if any(p.is_partial() for p in x.placements) else out
+
+
+def grad_as_placed(x: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``x`` (an identity) whose gradient is redistributed to
+    ``x``'s own placements (replicated where ``x`` is a partial sum), and
+    made contiguous, on the way back, so the op
+    that made ``x`` gets the layout its forward saw: DTensor hands back
+    what the consumers' strategies left, which a view's backward may not
+    take. A no-op on a plain tensor."""
+    return _GradAsPlaced.apply(x) if isinstance(x, DTensor) else x
+
+
+class _GradAsPlaced(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        # a partial sum's gradient is whole on every rank
+        ctx.placements = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not isinstance(g, DTensor):
+            return g.contiguous()
+        if tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        # the local shard laid out as the global strides say (a DTensor's
+        # gradient may carry contiguous strides over a transposed shard)
+        return DTensor.from_local(g.to_local().contiguous(), g.device_mesh, g.placements,
+                                  run_check=False, shape=g.shape,
+                                  stride=torch.empty(g.shape, device="meta").stride())
+
+
+def split_sharded(x: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """The DTensor ``x`` with tensor dim ``dim`` replicated unless the mesh
+    dims that shard it split ``parts`` evenly: a reshape of that dim into
+    (``parts``, -1) needs it (GQA's query heads into kv groups). A no-op on
+    a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh = x.device_mesh
+    dim = dim % x.ndim
+    split = 1
+    for i, p in enumerate(x.placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            split *= mesh.size(i)
+    if parts % split == 0:
+        return x
+    return x.redistribute(mesh, [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+                                 for p in x.placements])
+
+
+def as_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """The DTensor ``x`` with its local shard contiguous and its global
+    strides contiguous too: an elementwise op whose inputs DTensor had to
+    redistribute can leave a contiguous shard under the permuted strides
+    of its inputs, and a later reshape then views what it must copy. A
+    no-op on a plain tensor."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local().contiguous(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=torch.empty(x.shape, device="meta").stride())

@@ -17,6 +17,7 @@ from ..configs.base import ModelConfig
 from ..kernels import ops
 from .attention import matmul_promote
 from .layers import rms_norm, silu, softplus
+from .sharding import shard_activation
 
 
 def d_inner(cfg: ModelConfig) -> int:
@@ -70,7 +71,12 @@ def mamba_fwd(params: dict, x: torch.Tensor, cfg: ModelConfig, *, chunk: int = 6
     xin, z = xz.chunk(2, dim=-1)
     xin, conv_state = _conv1d_causal(xin, params["conv_w"], params["conv_b"], None)
     xin = silu(xin)
+    # the scan's operands keep batch on (pod, data) and the inner channels on model
+    xin = shard_activation(xin, ("batch", "seq", "inner"), cfg)
     dt, b_mat, c_mat, a = _ssm_inputs(params, xin, cfg)
+    dt = shard_activation(dt, ("batch", "seq", "inner"), cfg)
+    b_mat = shard_activation(b_mat, ("batch", "seq", None), cfg)
+    c_mat = shard_activation(c_mat, ("batch", "seq", None), cfg)
     c = scan_chunk(t, chunk)
     h0 = torch.zeros((bsz, d_inner(cfg), a.shape[1]), dtype=torch.float32, device=x.device)
     y, h = ops.mamba_chunk_scan(dt, b_mat, c_mat, a, xin, h0, chunk=c)

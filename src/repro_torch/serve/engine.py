@@ -1,7 +1,9 @@
 """Serving engine: prefill + decode with sampling.
 
-Port of the reference's ``serve/engine.py``. Eager PyTorch stands in for
-the jitted prefill and decode steps. Greedy decoding is ``argmax`` and
+Port of the reference's ``serve/engine.py``. ``make_serve_step`` (decode
+one token for the whole batch against the cache) and ``make_prefill`` are
+the step functions the dry-run's decode and prefill cells trace;
+``ServeEngine`` runs them eagerly, where the reference jits them. Greedy decoding is ``argmax`` and
 matches the reference token for token; with temperature > 0 tokens are
 drawn from a ``torch.Generator`` seeded by ``seed``, which cannot
 reproduce ``jax.random.categorical``.
@@ -19,6 +21,27 @@ from ..data.pipeline import to_device
 from ..device import resolve_device
 from ..models.model import decode_step, prefill
 from ..tree import map_leaves
+
+
+def make_serve_step(cfg: ModelConfig):
+    """(params, tokens (B, 1), cache, pos) -> (logits (B, 1, V), cache);
+    ``pos`` a Python int or a 0-dim integer tensor. The cache is written
+    in place and returned (ROADMAP C21)."""
+
+    def serve_step(params, tokens, cache, pos):
+        return decode_step(params, cfg, tokens, cache, pos)
+
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig, max_len: int | None = None):
+    """(params, batch) -> (last-position logits (B, 1, V), the decode cache
+    grown to ``max_len``)."""
+
+    def prefill_fn(params, batch):
+        return prefill(params, cfg, batch, max_len=max_len)
+
+    return prefill_fn
 
 
 def sample_token(logits: torch.Tensor, temperature: float,
@@ -43,6 +66,8 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.params = map_leaves(lambda t: t.to(self.device), params)
         self.max_len = max_len
+        self._prefill = make_prefill(cfg, max_len)
+        self._decode = make_serve_step(cfg)
         self.stats = {"requests": 0, "tokens": 0, "batches": 0}
 
     @torch.inference_mode()
@@ -68,11 +93,11 @@ class ServeEngine:
         gen = None
         if temperature > 0.0:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-        logits, cache = prefill(self.params, self.cfg, batch, max_len=self.max_len)
+        logits, cache = self._prefill(self.params, batch)
         tok = sample_token(logits, temperature, gen)
         out = [tok]
         for pos in range(s, s + max_new_tokens - 1):
-            logits, cache = decode_step(self.params, self.cfg, tok, cache, pos)
+            logits, cache = self._decode(self.params, tok, cache, pos)
             tok = sample_token(logits, temperature, gen)
             out.append(tok)
         self.stats["requests"] += b

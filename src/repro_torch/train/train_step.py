@@ -13,10 +13,11 @@ weighted load-balance and router z losses, reported as ``moe_lb`` and
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig, TrainConfig
 from ..models.model import forward, mtp_logits
@@ -30,7 +31,14 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     """Mean next-token CE in float32. logits: (B,S,V); targets: (B,S) integer."""
     logits = logits.to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    if isinstance(logits, DTensor):
+        # a dry-run's vocab-sharded logits: the masked sum, whose shards
+        # reduce with one all-reduce (DTensor's gather along a sharded dim
+        # leaves a mask its reductions cannot apply); the same values
+        hit = torch.arange(logits.shape[-1], device=logits.device) == targets[..., None]
+        gold = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean(), nll.numel()
@@ -75,11 +83,14 @@ def split_microbatches(batch: dict, k: int) -> dict:
     return {key: np.asarray(v).reshape(k, -1, *np.shape(v)[1:]) for key, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, *,
+                    microbatch_indices: Callable[[int], Iterable[int]] = range):
     """Returns train_step(state, batch) -> (state, metrics); metrics are
     float32 0-d tensors. The new parameters and optimizer state are written
     into the given state's tensors (as ``donate_argnums`` lets XLA do), so
-    a step holds one copy of them."""
+    a step holds one copy of them. With k > 1 microbatches the step runs
+    the microbatches ``microbatch_indices(k)`` yields (all k by default; the
+    dry-run traces the first alone and counts it k times)."""
 
     def grads_of(params: Any, batch: dict) -> tuple[list[torch.Tensor], dict]:
         live = map_leaves(lambda p: p.detach().requires_grad_(), params)
@@ -98,10 +109,11 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
                 raise ValueError(f"microbatches={k}: batch leaves must arrive pre-split as "
                                  f"(k, B/k, ...) (split_microbatches)")
             flat = leaves(params)
-            grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in flat]
+            # zeros_like keeps a sharded parameter's placement in a dry-run
+            grads = [torch.zeros_like(p, dtype=torch.float32) for p in flat]
             zero = torch.zeros((), dtype=torch.float32, device=flat[0].device)
             metrics = {key: zero for key in _metric_keys(cfg)}
-            for i in range(k):
+            for i in microbatch_indices(k):
                 g, m = grads_of(params, {key: v[i] for key, v in batch.items()})
                 for acc, gg in zip(grads, g):
                     acc.add_(gg.to(torch.float32) / k)

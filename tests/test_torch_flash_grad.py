@@ -9,9 +9,10 @@ window, ragged S and bidirectional attention. Remat ``"full"`` and
 ``"none"`` give the same loss and gradients, and ``"full"`` runs each
 group's forward again in the backward pass; ``"dots"`` gives the same
 and matches ``jax.grad`` through the reference under its ``"dots"``
-policy. On a card (``-m cuda``), ``FlashAttentionFn`` launches the kernel
-once per call and its gradients match autograd through the plain twin
-(the WKV and scan kernels' Functions: ``tests/test_torch_scan_grad.py``)."""
+policy. On a card (``-m cuda``), ``ops.flash_attention`` (its custom op,
+whose gradient recomputes through the twin) launches the kernel once per
+call and its gradients match autograd through the plain twin (the WKV and
+scan ops: ``tests/test_torch_scan_grad.py``)."""
 
 import jax
 import jax.numpy as jnp

@@ -28,10 +28,11 @@ EXECUTOR_MODULES = {
         "database", "server", "generator", "cfs", "http_server")),
 }
 
-# the launchers and the dry-run plane's cells and plan
+# the launchers and the dry-run plane: cells, plan, tracing, roofline, report
 LAUNCH_MODULES = {
     "repro_torch.launch.serve", "repro_torch.launch.mesh", "repro_torch.launch.sharding_plan",
     "repro_torch.configs.shapes", "repro_torch.models.sharding",
+    *(f"repro_torch.launch.{m}" for m in ("costs", "dryrun_lib", "dryrun", "roofline", "report")),
 }
 
 
@@ -55,7 +56,7 @@ def test_importing_every_module_loads_no_jax_and_no_reference():
                          env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     imported = set(res.stdout.split())
-    assert len(imported) >= 69  # every module really was imported
+    assert len(imported) >= 74  # every module really was imported
     assert TRAINING_MODULES <= imported, TRAINING_MODULES - imported
     assert EXECUTOR_MODULES <= imported, EXECUTOR_MODULES - imported
     assert LAUNCH_MODULES <= imported, LAUNCH_MODULES - imported

@@ -12,10 +12,12 @@ clip's top. The forward is bit for bit what it was: ``exp(where(tri,
 diff, -inf))`` equals ``where(tri, exp(diff), 0)`` element by element,
 overflowing entries included.
 
-On a card (``-m cuda``) ``WkvFn`` and ``MambaScanFn`` launch their kernel
-once in the forward and none in the backward, and their gradients match
-autograd through the plain twin on the card at the twins' float32 bar,
-atol 1e-4 / rtol 1e-3; at w0 = 4 they are finite."""
+On a card (``-m cuda``) ``ops.rwkv6_chunked`` and ``ops.mamba_chunk_scan``
+at the model's layout (their custom ops, whose gradient recomputes through
+the twin) launch their kernel once in the forward and none in the
+backward, and their gradients match autograd through the plain twin on
+the card at the twins' float32 bar, atol 1e-4 / rtol 1e-3; at w0 = 4 they
+are finite."""
 
 import math
 
@@ -148,16 +150,18 @@ def test_scan_gradients_match_jax_grad(b, t, di, n, chunk):
 CUDA_ATOL, CUDA_RTOL = 1e-4, 1e-3
 
 
-def _flat_wkv(args):
-    """The model-layout WKV inputs on the kernel's (B·H, T, K) layout."""
-    r, k, v, logw, u, s0 = args
+def _plain_wkv(r, k, v, logw, u, s0, chunk):
+    """The kernel's plain twin at the model's layout: flattened to
+    (B·H, T, K) and back here, apart from the op's own layout code."""
     b, t, h, dk = r.shape
 
     def flat(x):
         return x.transpose(1, 2).reshape(b * h, t, x.shape[-1])
 
-    return (flat(r), flat(k), flat(v), flat(logw), u[None].expand(b, h, dk).reshape(b * h, 1, dk),
-            s0.reshape(b * h, dk, dk))
+    out, s = wkv.rwkv6_plain(flat(r), flat(k), flat(v), flat(logw),
+                             u[None].expand(b, h, dk).reshape(b * h, 1, dk),
+                             s0.reshape(b * h, dk, -1), chunk=chunk)
+    return out.reshape(b, h, t, -1).transpose(1, 2), s.reshape(b, h, dk, -1)
 
 
 @pytest.mark.cuda
@@ -165,18 +169,17 @@ def _flat_wkv(args):
 def test_cuda_wkv_fn_gradients_match_the_plain_twin(w, chunk):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    np_args, cots = _wkv_inputs(2, 96 if chunk != 30 else 90, 4, 64, w, seed=chunk)
-    args = _flat_wkv([torch.from_numpy(a).cuda() for a in np_args])
-    g_out = torch.randn(args[2].shape, device="cuda")
-    g_s = torch.randn(args[5].shape, device="cuda")
+    np_args, (g_out, g_s) = _wkv_inputs(2, 96 if chunk != 30 else 90, 4, 64, w, seed=chunk)
+    args = [torch.from_numpy(a).cuda() for a in np_args]
+    g_out, g_s = torch.from_numpy(g_out).cuda(), torch.from_numpy(g_s).cuda()
     live = [a.clone().requires_grad_() for a in args]
     before = wkv.launches
-    out, s = wkv.WkvFn.apply(*live, chunk)
+    out, s = ops.rwkv6_chunked(*live, chunk=chunk)
     assert wkv.launches == before + 1 and out.grad_fn is not None
     got = torch.autograd.grad((out * g_out).sum() + (s * g_s).sum(), live)
     assert wkv.launches == before + 1  # the backward recomputes through the twin
     ref_in = [a.clone().requires_grad_() for a in args]
-    ro, rs = wkv.rwkv6_plain(*ref_in, chunk=chunk)
+    ro, rs = _plain_wkv(*ref_in, chunk)
     want = torch.autograd.grad((ro * g_out).sum() + (rs * g_s).sum(), ref_in)
     for name, g, r in zip(("r", "k", "v", "logw", "u", "s0"), got, want):
         assert torch.isfinite(g).all(), name

@@ -59,8 +59,9 @@ def test_twin_with_own_kv_length_matches_reference(b, sq, skv, h, kv, d, blk):
 
 
 def test_twin_gradient_with_own_kv_length_matches_jax_grad():
-    """The backward ``FlashAttentionFn`` takes on the card (through the
-    twin) against ``jax.grad`` of the reference's cross-attention core."""
+    """The backward ``repro_torch::flash_attention`` takes on the card
+    (through the twin) against ``jax.grad`` of the reference's
+    cross-attention core."""
     b, sq, skv, h, kv, d = 2, 24, 41, 4, 2, 16
     q, k, v, w = (_rand(1, b, sq, h, d), _rand(2, b, skv, kv, d), _rand(3, b, skv, kv, d),
                   _rand(4, b, sq, h, d))
