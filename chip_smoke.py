@@ -28,7 +28,15 @@ Phases, each of which exits non-zero when it fails:
      requests in batches of 4 through the batch handler; with every launch
      count set to 0 just before, each kernel must launch exactly as often
      per prefill as the slice's layout says (and a kernel it does not name,
-     never), and greedy output must repeat exactly. For mixtral and
+     never), and greedy output must repeat exactly. Each slice's breakdown
+     takes a batch of 4 two ways: a prefill and an eager ``decode_step``
+     loop, and the same batch through the engine, which decodes by
+     replaying the one CUDA graph it captured for the batch's decode key;
+     the greedy tokens must be equal for all ``NEW_TOKENS``, the first
+     step's logits within ``CAPTURED_LOGITS_BAR`` (the largest difference
+     printed), and every key must hold one graph; decode ms a step and
+     the peak are printed for both, and a profiled batch's idle share for
+     the engine's. For mixtral and
      deepseek the served tokens must also equal direct ``generate``, B1
      must launch once per attention layer in a prefill and never in a
      decode step, and the share of dropped (token, choice) pairs is printed
@@ -112,7 +120,9 @@ Phases, each of which exits non-zero when it fails:
  12. ``[executors-serve-full]``: a ServeExecutor of full-width stablelm-3b
      (float32) behind a generator of queuesize 4: 8 signed requests over
      HTTP in 2 batches, 32 flash attention launches a prefill, tokens equal
-     to the engine's own generate; wall time, requests/s, tokens/s, the
+     to the engine's own generate, the first batch's also to an eager
+     ``decode_step`` loop, one graph for the key; wall time, requests/s,
+     tokens/s, the
      engine's seconds per batch and the share outside it (requests 5-8
      wait until batch 1 is on the engine; that wait is reported); this process
      then holds no module of ``repro`` or JAX;
@@ -120,7 +130,9 @@ Phases, each of which exits non-zero when it fails:
      executors: ``launch.serve`` of full-width stablelm-3b (float32) in
      this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
      attention launches a prefill and none of the scans, tokens equal to
-     the engine's own generate on each batch the broker formed, and each
+     the engine's own generate on each batch the broker formed (the first
+     batch's also to an eager ``decode_step`` loop, one graph for the
+     key), and each
      served prefill's cache equal to ``abstract_cache`` in paths, shapes
      and dtypes; wall time, tokens/s and the share outside the engine.
      Then ``launch.train`` at smoke size (6 steps) in a process of its own
@@ -259,6 +271,10 @@ BIDIR_CASES = [
 ]
 PROMPT_LENS = [8, 300, 37, 129, 64, 200, 17, 150]  # batches of 4: S = 300, then 200
 NEW_TOKENS = 16
+# A captured decode step runs eager's kernels, so its logits should be
+# eager's bit for bit; should cuBLAS pick another algorithm under capture,
+# they are held at the bf16 bar instead.
+CAPTURED_LOGITS_BAR = 3e-2
 TIMING_SHAPE = (4, 2048, 32, 32, 80)  # B, S, H, KV, D: stablelm prefill
 FLASH_SERVING_SHAPES = {"stablelm S=300": (4, 300, 32, 32, 80), "jamba S=300": (4, 300, 64, 8, 128)}
 # [mixtral-swa]: B, S, H, KV, D and the window at which the window bites
@@ -1303,56 +1319,130 @@ def phase_xattn_decode(engine) -> tuple[dict, dict]:
                    "launches": f32["launches"]}
 
 
-def breakdown(engine, requests: list[dict], tag: str, serve,
-              memories: dict[str, torch.Tensor] | None = None) -> dict:
-    """Where one batch's time goes: prefill and decode wall times, then a
-    profiler window (over ``serve``, ``make_server``'s) for the device's
-    busy share and its top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
+def eager_decode(engine, batch: dict, new: int) -> tuple[list, torch.Tensor, float, float]:
+    """A prefill and ``new - 1`` eager ``decode_step`` calls at int
+    positions on the engine's weights, greedy, outside the engine: (the
+    tokens (B, new) as lists, the first decode step's logits, prefill s,
+    decode s a step), timed to the device's end."""
     from repro_torch.models import decode_step, prefill
-    from repro_torch.serve.batcher import pad_prompts
 
-    tokens = torch.as_tensor(pad_prompts(requests), dtype=torch.long, device="cuda")
-    batch = {"tokens": tokens}
-    if memories is not None:
-        batch[memory_of(engine.cfg)[0]] = torch.stack([memories[r["request_id"]] for r in requests])
+    s = batch["tokens"].shape[1]
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(engine.params, engine.cfg, batch, engine.max_len)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tok = logits.argmax(-1)
-        for pos in range(tokens.shape[1], tokens.shape[1] + NEW_TOKENS - 1):
-            logits, cache = decode_step(engine.params, engine.cfg, tok, cache, pos)
-            tok = logits.argmax(-1)
+        out, first = [logits.argmax(-1)], None
+        for pos in range(s, s + new - 1):
+            logits, cache = decode_step(engine.params, engine.cfg, out[-1], cache, pos)
+            first = logits if first is None else first
+            out.append(logits.argmax(-1))
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-    prefill_s, decode_step_s = t1 - t0, (t2 - t1) / (NEW_TOKENS - 1)
-    print(f"{tag} breakdown: B={tokens.shape[0]} S={tokens.shape[1]}: prefill {prefill_s:.4f} s, "
-          f"decode {decode_step_s * 1e3:.3f} ms/step")
+    return torch.cat(out, 1).tolist(), first, t1 - t0, (t2 - t1) / (new - 1)
+
+
+def engine_step(engine, b: int, tag: str):
+    """The engine's one greedy decode key of batch size ``b``, with its
+    graph: one capture per key."""
+    steps = [st for key, st in engine.steps.items() if key[0] == b and not key[1]]
+    graphs = sum(st.graph is not None for st in engine.steps.values())
+    print(f"{tag} engine: {len(engine.steps)} decode keys, {graphs} captured graphs")
+    check(len(steps) == 1 and graphs == len(engine.steps),
+          f"{len(steps)} greedy keys of B={b}, {graphs} graphs for {len(engine.steps)} keys")
+    return steps[0]
+
+
+def profile_window(fn, tag: str, label: str) -> tuple[float, float] | None:
+    """(wall s, device busy s) of ``fn()`` under ``torch.profiler``, the
+    idle share printed with the 8 kernels of most device time (and the
+    port's kernels below them); None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(requests, len(requests))
+        fn()
+        torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     kernels = sorted(
         ((e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
          if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
         key=lambda r: -r[2])
-    busy_s = sum(r[2] for r in kernels) / 1e6
     if not kernels:
-        print(f"{tag} profiler recorded no device time: busy share not measured")
-        return {"prefill_s": prefill_s, "decode_step_s": decode_step_s}
-    print(f"{tag} profiled batch: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, "
-          f"idle share {1 - busy_s / wall_s:.4f} (profiler overhead included)")
+        print(f"{tag} {label}: the profiler recorded no device time: busy share not measured")
+        return None
+    busy_s = sum(r[2] for r in kernels) / 1e6
+    print(f"{tag} {label}: wall {wall_s:.4f} s, device busy {busy_s:.4f} s, idle share "
+          f"{1 - busy_s / wall_s:.4f} (profiler overhead included)")
     port = ("flash_fwd_", "wkv6_fwd_kernel", "mamba_scan_fwd_kernel")  # the port's kernels
     ours = [r for r in kernels[8:] if any(name in r[0] for name in port)]  # if not on top
     for name, count, us in kernels[:8] + ours:
         print(f"{tag}   {us / 1e3:10.3f} ms {count:6d}x {us / 1e6 / busy_s:7.2%} {name[:90]}")
-    return {"prefill_s": prefill_s, "decode_step_s": decode_step_s,
-            "profiled_wall_s": wall_s, "profiled_busy_s": busy_s}
+    return wall_s, busy_s
+
+
+def breakdown(engine, requests: list[dict], tag: str, serve,
+              memories: dict[str, torch.Tensor] | None = None) -> dict:
+    """Where one batch's time goes, eager against captured. Eager: a
+    prefill and an eager ``decode_step`` loop, timed, and its peak.
+    Captured: the same batch through ``engine.generate`` (its decode key's
+    one CUDA graph) must give the eager loop's greedy tokens for all
+    ``NEW_TOKENS``; then one prefill loaded into the key's step, whose
+    first replay's logits are held to the eager first step's and whose
+    other replays are timed; then a profiler window over ``serve``
+    (``make_server``'s) for the device's busy share, and its peak."""
+    from repro_torch.models import prefill
+    from repro_torch.serve.batcher import pad_prompts
+
+    t_start = time.perf_counter()
+    prompts = pad_prompts(requests)
+    tokens = torch.as_tensor(prompts, dtype=torch.long, device=engine.device)
+    batch, extras = {"tokens": tokens}, {}
+    if memories is not None:
+        extras[memory_of(engine.cfg)[0]] = torch.stack([memories[r["request_id"]]
+                                                        for r in requests])
+        batch.update(extras)
+    b, s = tokens.shape
+    torch.cuda.reset_peak_memory_stats()
+    eager, first, prefill_s, decode_step_s = eager_decode(engine, batch, NEW_TOKENS)
+    eager_peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} breakdown: B={b} S={s}: prefill {prefill_s:.4f} s, eager decode "
+          f"{decode_step_s * 1e3:.3f} ms/step; peak {eager_peak} bytes")
+
+    served = engine.generate(prompts, max_new_tokens=NEW_TOKENS, extras=extras).tolist()
+    check(served == eager, "the captured engine's greedy tokens differ from the eager loop's")
+    step = engine_step(engine, b, tag)
+    with torch.inference_mode():
+        logits, cache = prefill(engine.params, engine.cfg, batch, engine.max_len)
+        step.load(cache, logits.argmax(-1), s)
+        del logits, cache
+        step.run(1)
+        first_diff = (step.logits.float() - first.float()).abs().max().item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.run(NEW_TOKENS - 2)
+        torch.cuda.synchronize()
+        captured_step_s = (time.perf_counter() - t0) / (NEW_TOKENS - 2)
+        replayed = step.out[:, s : s + NEW_TOKENS].tolist()
+    check(replayed == eager, "the replayed steps' tokens differ from the eager loop's")
+    print(f"{tag} captured engine: greedy tokens equal the eager loop's for all {NEW_TOKENS}; "
+          f"decode {captured_step_s * 1e3:.3f} ms/step (eager {decode_step_s * 1e3:.3f}); "
+          f"first step's logits: largest difference {first_diff:.3e} "
+          f"({'bit-identical' if first_diff == 0 else f'bar {CAPTURED_LOGITS_BAR}'})")
+    check(first_diff <= CAPTURED_LOGITS_BAR, f"first step's logits differ by {first_diff}")
+    torch.cuda.reset_peak_memory_stats()
+    window = profile_window(lambda: serve(requests, len(requests)), tag,
+                            "profiled captured batch (through the engine)")
+    captured_peak = torch.cuda.max_memory_allocated()
+    print(f"{tag} peak: eager {eager_peak} bytes, captured engine {captured_peak} bytes; "
+          f"breakdown {time.perf_counter() - t_start:.1f} s")
+    stats = {"prefill_s": prefill_s, "decode_step_s": decode_step_s,
+             "captured_step_s": captured_step_s, "first_logits_diff": first_diff,
+             "eager_peak_bytes": eager_peak, "captured_peak_bytes": captured_peak}
+    if window is not None:
+        stats["profiled_wall_s"], stats["profiled_busy_s"] = window
+    return stats
 
 
 def reseed_rwkv(params: dict, gen: torch.Generator) -> None:
@@ -2634,6 +2724,18 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
                    "eval_ce": done["out"][0]["eval_ce"], "seconds": seconds}
 
 
+def hold_to_eager(engine, packed: list[dict], served: list[list[int]], tag: str) -> None:
+    """A served batch's tokens against an eager ``decode_step`` loop on the
+    engine's own weights; the engine captured one graph for its key."""
+    from repro_torch.serve.batcher import pad_prompts
+
+    tokens = torch.as_tensor(pad_prompts(packed), dtype=torch.long, device=engine.device)
+    eager = eager_decode(engine, {"tokens": tokens}, len(served[0]))[0]
+    check(served == eager, "the served batch's tokens differ from the eager decode loop's")
+    engine_step(engine, len(packed), tag)
+    print(f"{tag} the first batch's served tokens equal an eager decode_step loop's")
+
+
 def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
     """Full-width stablelm-3b (32 layers, float32 as the executors' config
     forces) in a ServeExecutor behind a generator of queuesize 4: 8 signed
@@ -2712,11 +2814,13 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
           f"batches of {sizes}, engine stats {engine.stats}")
     check(counts == want, f"launches {counts}, want {want}")
     prefill_s = []
-    for q in batches:
+    for i, q in enumerate(batches):
         packed = q["spec"]["kwargs"]["packed_args"]
         direct = engine.generate(pad_prompts(packed), max_new_tokens=NEW_TOKENS).tolist()
         got = [served[r["request_id"]] for r in packed]
         check(got == direct, "served tokens differ from the engine's own generate on the batch")
+        if i == 0:
+            hold_to_eager(engine, packed, got, tag)
         tokens = torch.as_tensor(pad_prompts(packed), dtype=torch.long, device=engine.device)
         with torch.inference_mode():
             torch.cuda.synchronize()
@@ -2802,11 +2906,13 @@ def phase_launch_serve() -> tuple[dict, dict]:
           f"batches of {sizes}, engine stats {res['stats']}")
     check(counts == want, f"launches {counts}, want {want}")
     reqs = {r["request_id"]: r for r in res["requests"]}
-    for batch in batches:
+    for i, batch in enumerate(batches):
         packed = [reqs[rid] for rid in batch]
         direct = engine.generate(pad_prompts(packed), max_new_tokens=16).tolist()
         check([r["tokens"] for r in packed] == direct,
               "tokens served through launch.serve differ from the engine's own generate")
+        if i == 0:
+            hold_to_eager(engine, packed, direct, tag)
     abstract = [(n, tuple(t.shape), t.dtype, t.device.type)
                 for n, t in leaves_with_names(abstract_cache(cfg, 4, engine.max_len))]
     check(len(caches) == 2, f"{len(caches)} served prefills, want 2")
@@ -2995,34 +3101,46 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs one card", file=sys.stderr)
         return 1
-    t0 = time.perf_counter()
+    t0, marks = time.perf_counter(), {}
+
+    def mark(phase: str) -> None:  # seconds from the start at the phase's end
+        marks[phase] = round(time.perf_counter() - t0, 1)
+
     card = phase_card()
     phase_build()
     worst_err = phase_kernel_cases()
     worst_wkv = phase_wkv_cases()
     worst_mamba = phase_mamba_cases()
     grad_stats = phase_grad()
+    mark("kernels and grad")
     stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32},
                                          after=dryrun_serve_checks)
     dryrun_counts = stats.pop("launches")
     dryrun_rows = stats.pop("dryrun")
+    mark("slice stablelm-3b")
     rwkv_counts, rwkv_stats = phase_slice("rwkv6-7b", "full", PRIME_PROMPT_LENS, {"rwkv6_wkv": 32})
+    mark("slice rwkv6-7b")
     jamba_counts, jamba_stats = phase_slice("jamba-1.5-large-398b", "no-moe", PRIME_PROMPT_LENS,
                                             JAMBA_PER_PREFILL)
+    mark("slice jamba")
     mixtral_counts, mixtral_stats = phase_slice("mixtral-8x7b", "half-depth", PROMPT_LENS,
                                                 MIXTRAL_PER_PREFILL, after=mixtral_checks)
     swa_counts = mixtral_stats.pop("launches")
+    mark("slice mixtral")
     print(f"[slice deepseek-v3-671b] mixtral freed: {torch.cuda.memory_allocated()} bytes "
           f"allocated, {torch.cuda.mem_get_info()[0]} free")
     deepseek_counts, deepseek_stats = phase_slice("deepseek-v3-671b", "two-moe", PROMPT_LENS,
                                                   DEEPSEEK_PER_PREFILL, after=deepseek_checks)
     absorb_counts = deepseek_stats.pop("launches")
+    mark("slice deepseek")
     vision_counts, vision_stats = phase_slice("llama-3.2-vision-11b", "full", PROMPT_LENS,
                                               VISION_PER_PREFILL, after=xattn_checks)
     vision_check_counts = vision_stats.pop("launches")
+    mark("slice llama-vision")
     seamless_counts, seamless_stats = phase_slice("seamless-m4t-large-v2", "full", PROMPT_LENS,
                                                   SEAMLESS_PER_PREFILL, after=xattn_checks)
     seamless_check_counts = seamless_stats.pop("launches")
+    mark("slice seamless")
     phase_cross_device("granite-3-8b", "smoke", 72)
     phase_cross_device("rwkv6-7b", "smoke", 72, reseed_rwkv)
     phase_cross_device("jamba-1.5-large-398b", "smoke-no-moe", 67, reseed_jamba)
@@ -3033,10 +3151,14 @@ def main() -> int:
     phase_cross_device("deepseek-v3-671b", "smoke", 72)
     cross_device_counts = {arch: phase_cross_device(arch, "smoke", 72, reseed_gates)
                            for arch in ("llama-3.2-vision-11b", "seamless-m4t-large-v2")}
+    mark("cross")
     train_counts, train_stats = phase_train_full(grad_stats)
     dryrun_rows[DRYRUN_CELLS[2][0]] = phase_dryrun_train(train_stats)
+    mark("train-full and dryrun train")
     continuum_counts = child_phase("--continuum", "[continuum]")
+    mark("continuum")
     cross_counts, cross_worst = phase_train_cross()
+    mark("train-cross")
     broker = Broker()
     try:
         broker_stats = phase_broker(broker)
@@ -3045,9 +3167,13 @@ def main() -> int:
         check(broker.alive(), "the broker process died")
     finally:
         broker.close()
+    mark("broker and executors")
     launch_serve_counts, launch_stats = phase_launch_serve()
+    mark("launch serve")
     launch_train_counts = child_phase("--launch-train", "[launch]")
+    mark("launch train")
     launch_full_counts, launch_full_stats = phase_launch_train_full()
+    mark("launch train full")
     foreign = reference_modules(sys.modules)
     print(f"[broker] stopped; modules of the reference or of JAX in this process: {foreign}")
     check(not foreign, f"this process imported {foreign}")
@@ -3078,6 +3204,7 @@ def main() -> int:
     wkv_row, prime = phase_wkv_timing(worst_wkv, launches["rwkv6_wkv"])
     mamba_row, serving = phase_mamba_timing(worst_mamba, launches["mamba_scan"])
     kernels += [wkv_row, mamba_row]
+    mark("timing")
     print(f"[done] {time.perf_counter() - t0:.1f} s; serving stablelm-3b {json.dumps(stats)}; "
           f"flash attention at serving shapes {json.dumps(flash_serving)}")
     print(f"[done] serving rwkv6-7b {json.dumps(rwkv_stats)}; WKV at a prime prompt "
@@ -3098,6 +3225,8 @@ def main() -> int:
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
           f"{json.dumps(launch_full_stats)}")
     print(f"[done] dryrun {json.dumps(dryrun_rows)}")
+    print(f"[done] seconds from the start at the end of each phase {json.dumps(marks)}; "
+          f"the whole script {time.perf_counter() - t0:.1f} s")
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
