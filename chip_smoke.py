@@ -92,32 +92,47 @@ Phases, each of which exits non-zero when it fails:
      the recomputation through the twin, the optimizer update); then
      ``[dryrun]``'s train cell: the trace of this step against its
      measured time and peak;
-  8. ``[continuum]``: the reference's main path on the card at smoke size
-     in float32 through ``runtime.train_loop``: ``prepare_data``, ``train``
+  8. ``[train-graph]``: ``[train-full]``'s configuration and data, eager
+     (``make_train_step``) and then captured (``TrainStep``: the first
+     step eager, the next captured in a CUDA graph and replayed, the rest
+     replays), each from the seed-0 state (rebuilt between the runs: two
+     do not fit the card) under deterministic algorithms, in a process of
+     its own (``chip_smoke.py --train-graph``, ``CONTINUUM_ENV``), 7
+     steps each: losses, grad norms and every parameter bit-identical, 128
+     flash attention launches on every step, replays included; s a step
+     and tokens/s for both, peaks (allocated and reserved; the capture's,
+     the graph's pool), the capture's seconds, and a profiled replay's
+     idle share beside ``[train-full]``'s profiled eager step's; then 4
+     eval batches at that width through ``EvalStep``, bit-identical to the
+     eager ``make_eval_step``;
+  9. ``[continuum]``: the reference's main path on the card at smoke size
+     in float32 through ``runtime.train_loop`` (its train and eval steps
+     captured, ``TrainStep`` and ``EvalStep``): ``prepare_data``, ``train``
      crashing at step 3 and resuming from ``latest.json``, ``evaluate``, and
      a ``ServeEngine`` on the restored parameters behind the batch handler;
      straight and resumed runs agree at atol 1e-6 (deterministic
      algorithms, in a process of its own with a fixed cuBLAS workspace),
      and greedy tokens equal those of the in-memory params;
-  9. ``[train-cross]``: three smoke f32 steps on the card against the CPU on
-     the same parameters and batches, 1 and 2 microbatches, for stablelm
+ 10. ``[train-cross]``: three smoke f32 steps on the card (``TrainStep``: a
+     warm-up, a capture, a replay) against the CPU's eager body on the
+     same parameters and batches, 1 and 2 microbatches, for stablelm
      (AdamW and Adafactor), mixtral, rwkv6, jamba with experts, deepseek
      (MLA, the dense prefix and MTP, with ``mtp_ce``) and seamless (AdamW),
      and llama-vision (Adafactor):
      loss, grad norm and parameters at each case's bar in
      ``TRAIN_CROSS_CASES``, and exact launch counts on the card;
- 10. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
+ 11. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
      in a process of its own (``BROKER_SOURCE``: signatures verified, no
      torch, no jax, no module of ``repro``), reached
      only over HTTP through the port's signed client; the colony, and the
      mean round trip of 20 signed ``colonystats``;
- 11. ``[executors-continuum]``: both DAGs of the reference's continuum test
+ 12. ``[executors-continuum]``: both DAGs of the reference's continuum test
      on the port's executors on the card (smoke, f32): train, restore from
      CFS and serve through a generator; then prepare_data -> train (two
      trainers crash at step 3, the failsafe re-queues at a lease of 3x the
      measured attempt, the resume) -> evaluate, with flash attention's
      launches counted for the steps and batches that ran;
- 12. ``[executors-serve-full]``: a ServeExecutor of full-width stablelm-3b
+ 13. ``[executors-serve-full]``: a ServeExecutor of full-width stablelm-3b
      (float32) behind a generator of queuesize 4: 8 signed requests over
      HTTP in 2 batches, 32 flash attention launches a prefill, tokens equal
      to the engine's own generate, the first batch's also to an eager
@@ -126,7 +141,7 @@ Phases, each of which exits non-zero when it fails:
      engine's seconds per batch and the share outside it (requests 5-8
      wait until batch 1 is on the engine; that wait is reported); this process
      then holds no module of ``repro`` or JAX;
- 13. ``[launch]``: the launchers' own CLIs through the broker and the
+ 14. ``[launch]``: the launchers' own CLIs through the broker and the
      executors: ``launch.serve`` of full-width stablelm-3b (float32) in
      this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
      attention launches a prefill and none of the scans, tokens equal to
@@ -142,7 +157,7 @@ Phases, each of which exits non-zero when it fails:
      (float32, AdamW, 2 steps, its whole state checkpointed through CFS and
      restored by ``evaluate``), held the same way to the direct handlers,
      each run in a child process of its own;
- 14. each kernel, its plain twin and, where there is one, a PyTorch call
+ 15. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
      mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
@@ -356,6 +371,9 @@ DRYRUN_DECODE_POS = 2048
 DRYRUN_PEAK_RTOL = 0.20  # predicted peak (arguments + temporaries) against the measured
 # the autograd node of B1's custom op (torch names it after the op)
 B1_BACKWARD_NODE = "repro_torch_flash_attention"
+# [train-graph]: [train-full]'s step, eager and captured, each for this many
+# timed steps and one profiled, then this many eval batches at that width
+TRAIN_GRAPH_STEPS, TRAIN_GRAPH_EVALS = 6, 4
 # [continuum]: the reference handlers' smoke run, cut to 6 steps of 4 x 64.
 # It turns deterministic algorithms on, and cuBLAS is deterministic only
 # with a fixed workspace, set before CUDA starts: so it runs in a process
@@ -550,11 +568,9 @@ def phase_card() -> str:
 
 def kernel_modules() -> dict:
     """Each kernel's module, by the name the kernels line gives it."""
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import mamba_scan as ms
-    from repro_torch.kernels import rwkv6 as wkv
+    from repro_torch.kernels.launches import MODULES
 
-    return {"flash_attention": fa, "rwkv6_wkv": wkv, "mamba_scan": ms}
+    return dict(MODULES)
 
 
 def phase_build() -> None:
@@ -2287,6 +2303,172 @@ def phase_train_full(grad_stats: dict) -> tuple[dict, dict]:
     return counts, stats
 
 
+def _train_graph_run(cfg, tcfg, data, captured: bool, tag: str) -> dict:
+    """``TRAIN_GRAPH_STEPS`` timed steps and one more of stablelm-3b full
+    from the seed-0 state: eager (``make_train_step``), the last timed too,
+    or captured (``TrainStep``), the last profiled (the eager step's
+    profile is ``[train-full]``'s: processing a profile of an eager step's
+    every op takes tens of seconds); each step's launches asserted.
+    Returns the metrics and seconds of each step, the peaks, the profiled
+    window, the parameters copied to the host and the state."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models import init_params, model_spec
+    from repro_torch.models.model import dtype_of
+    from repro_torch.train.train_step import (
+        WARMUP_STEPS, TrainStep, init_state, make_train_step, split_microbatches,
+    )
+
+    mods = kernel_modules()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = init_state(init_params(model_spec(cfg), gen, dtype_of(cfg.param_dtype), "cuda"), tcfg)
+    if captured:
+        run = TrainStep(cfg, tcfg, state)
+    else:
+        body = make_train_step(cfg, tcfg)
+
+        def run(host: dict) -> dict:
+            nonlocal state
+            state, metrics = body(state, to_device(host, "cuda"))
+            return metrics
+
+    want = {name: cfg.num_layers * 2 * TRAIN_MICRO if name == "flash_attention" else 0
+            for name in mods}  # forward + remat recomputation, per microbatch
+    out = {"metrics": [], "step_s": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_GRAPH_STEPS + 1):
+        host = split_microbatches(data.batch_at(i), TRAIN_MICRO)
+        zero_launches(mods)
+        capturing = captured and i == WARMUP_STEPS
+        if capturing:
+            torch.cuda.synchronize()
+            out["peak_bytes"] = torch.cuda.max_memory_allocated()  # the warm-up's
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < TRAIN_GRAPH_STEPS or not captured:
+            m = {k: float(v) for k, v in run(host).items()}
+            out["step_s"].append(time.perf_counter() - t0)
+        else:
+            got = {}
+            window = profile_window(lambda: got.update(run(host)), tag, "profiled replay")
+            m = {k: float(v) for k, v in got.items()}
+            if window is not None:
+                out["profiled_wall_s"], out["profiled_busy_s"] = window
+        if capturing:
+            out["capture_peak_bytes"] = torch.cuda.max_memory_allocated()
+            out["pool_bytes"] = torch.cuda.memory_reserved() - reserved
+            out["reserved_bytes"] = torch.cuda.max_memory_reserved()
+        out["metrics"].append(m)
+        counts = {name: mod.launches for name, mod in mods.items()}
+        check(counts == want, f"{tag} step {i}: kernel launches {counts}, want {want}")
+        check(all(math.isfinite(v) for v in m.values()), f"{tag} step {i}: metrics {m}")
+    if not captured:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["reserved_bytes"] = torch.cuda.max_memory_reserved()
+    else:
+        check(run.graph is not None, f"{tag}: no graph after {TRAIN_GRAPH_STEPS + 1} steps")
+        run.close()
+    out["state_bytes"] = storage_bytes(state)
+    out["params"] = host_copy(state["params"])
+    out["state"] = state
+    return out
+
+
+def phase_train_graph() -> dict:
+    """``[train-graph]``, run by ``child_phase`` under ``CONTINUUM_ENV``:
+    stablelm-3b full (``[train-full]``'s configuration and data), eager and
+    then captured from the same seed under deterministic algorithms, held
+    bit for bit; then ``TRAIN_GRAPH_EVALS`` eval batches through
+    ``EvalStep`` against the eager ``make_eval_step``. Returns the launch
+    counts and the stats."""
+    import gc
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import SyntheticTokens, to_device
+    from repro_torch.train.train_step import WARMUP_STEPS, EvalStep, make_eval_step
+
+    tag = "[train-graph]"
+    mods = kernel_modules()
+    cfg = get_config("stablelm-3b", "full")
+    tcfg = TrainConfig(optimizer="adamw", learning_rate=1e-2, warmup_steps=0,
+                       total_steps=100, microbatches=TRAIN_MICRO)
+    data = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        for captured in (False, True):
+            name = "captured" if captured else "eager"
+            t0 = time.perf_counter()
+            runs[name] = r = _train_graph_run(cfg, tcfg, data, captured, tag)
+            later = sorted(r["step_s"][WARMUP_STEPS + 1:])  # replays, when captured
+            steady = later[len(later) // 2]
+            r["median_step_s"], r["tokens_per_s"] = steady, tokens / steady
+            print(f"{tag} {name}: steps {[round(x, 4) for x in r['step_s']]} s; median of steps "
+                  f"{WARMUP_STEPS + 1}-{len(r['step_s']) - 1} {steady:.4f} s, "
+                  f"{tokens / steady:.1f} tokens/s; max_memory_allocated {r['peak_bytes']} "
+                  f"bytes{' (the warm-up step)' if captured else ''}, state "
+                  f"{r['state_bytes']}; max_memory_reserved {r['reserved_bytes']} bytes; run "
+                  f"{time.perf_counter() - t0:.1f} s")
+            if captured:
+                r["capture_s"] = r["step_s"][WARMUP_STEPS] - steady
+                print(f"{tag} captured: the capture (the call that captured, less a replay) "
+                      f"{r['capture_s']:.4f} s; while capturing max_memory_allocated "
+                      f"{r['capture_peak_bytes']} bytes; the graph's pool {r['pool_bytes']} "
+                      f"bytes")
+            else:  # two states do not fit the card
+                del r["state"]
+                gc.collect()
+                torch.cuda.empty_cache()
+        eager, graph = runs["eager"], runs["captured"]
+        check(graph["metrics"] == eager["metrics"],
+              f"{tag} metrics differ: captured {graph['metrics']}, eager {eager['metrics']}")
+        same = [torch.equal(a, b) for a, b in zip(graph["params"], eager["params"], strict=True)]
+        print(f"{tag} captured against eager over {TRAIN_GRAPH_STEPS + 1} steps: losses and grad "
+              f"norms equal ({[m['loss'] for m in graph['metrics']]}); {sum(same)} of "
+              f"{len(same)} parameter leaves bit-identical")
+        check(all(same), f"{tag} {same.count(False)} parameter leaves differ")
+
+        params = graph["state"]["params"]
+        evals = SyntheticTokens(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=9999)
+        body, step = make_eval_step(cfg, tcfg), EvalStep(cfg, tcfg, params)
+        want_eval = {name: cfg.num_layers if name == "flash_attention" else 0 for name in mods}
+        ev = {"eager": [], "captured": [], "eager_s": [], "captured_s": []}
+        for i in range(TRAIN_GRAPH_EVALS):
+            host = evals.batch_at(i)
+            for name, fn in (("eager", lambda: body(params, to_device(host, "cuda"))),
+                             ("captured", lambda: step(host))):
+                zero_launches(mods)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ev[name].append(float(fn()["ce"]))
+                ev[f"{name}_s"].append(time.perf_counter() - t0)
+                counts = {n: mod.launches for n, mod in mods.items()}
+                check(counts == want_eval, f"{tag} eval {name} {i}: launches {counts}")
+        check(step.graph is not None, f"{tag}: the eval step was not captured")
+        step.close()
+        print(f"{tag} eval over {TRAIN_GRAPH_EVALS} batches: ce {ev['captured']} (captured), "
+              f"equal to eager: {ev['captured'] == ev['eager']}; s a batch eager "
+              f"{[round(x, 4) for x in ev['eager_s']]}, captured "
+              f"{[round(x, 4) for x in ev['captured_s']]}")
+        check(ev["captured"] == ev["eager"], f"{tag} eval ce differs: {ev}")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    keys = ("step_s", "median_step_s", "tokens_per_s", "peak_bytes", "state_bytes",
+            "reserved_bytes", "profiled_wall_s", "profiled_busy_s")
+    stats = {name: {k: r[k] for k in keys if k in r} for name, r in runs.items()}
+    stats["captured"].update({k: graph[k] for k in ("capture_s", "capture_peak_bytes",
+                                                    "pool_bytes")})
+    stats["eval"] = ev
+    steps = 2 * (TRAIN_GRAPH_STEPS + 1)
+    counts = {n: steps * cfg.num_layers * 2 * TRAIN_MICRO + 2 * TRAIN_GRAPH_EVALS * cfg.num_layers
+              if n == "flash_attention" else 0 for n in mods}
+    return {"counts": counts, "stats": stats}
+
+
 def phase_continuum() -> dict:
     """The reference's main path on the card at smoke size in float32,
     through ``runtime.train_loop`` against a ``MemoryStore``: prepare_data,
@@ -2400,7 +2582,9 @@ def phase_train_cross() -> dict:
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import SyntheticTokens, to_device
     from repro_torch.models import init_params, model_spec
-    from repro_torch.train.train_step import init_state, make_train_step, split_microbatches
+    from repro_torch.train.train_step import (
+        TrainStep, init_state, make_train_step, split_microbatches,
+    )
     from repro_torch.tree import leaves_with_names, map_leaves
 
     mods = kernel_modules()
@@ -2421,16 +2605,15 @@ def phase_train_cross() -> dict:
                                    total_steps=10, microbatches=k)
                 states = {dev: init_state(map_leaves(lambda p: p.to(dev, copy=True), params), tcfg)
                           for dev in ("cpu", "cuda")}
-                steps = {dev: make_train_step(cfg, tcfg) for dev in states}
+                body, captured = make_train_step(cfg, tcfg), TrainStep(cfg, tcfg, states["cuda"])
                 for mod in mods.values():
                     mod.launches = 0
                 for i in range(3):
                     host = data.batch_at(i)
                     if k > 1:
                         host = split_microbatches(host, k)
-                    metrics = {}
-                    for dev in states:
-                        states[dev], metrics[dev] = steps[dev](states[dev], to_device(host, dev))
+                    metrics = {"cuda": captured(host)}
+                    states["cpu"], metrics["cpu"] = body(states["cpu"], to_device(host, "cpu"))
                     for key in metrics["cpu"]:
                         if key == "lr":
                             continue
@@ -2443,6 +2626,7 @@ def phase_train_cross() -> dict:
                 counts = {name: mod.launches for name, mod in mods.items()}
                 want = {name: 3 * k * n for name, n in train_launches(cfg).items()}
                 check(counts == want, f"{arch} {optimizer} k={k}: launches {counts}, want {want}")
+                check(captured.graph is not None, f"{arch} {optimizer} k={k}: not captured")
                 launches[arch] = {n: launches.get(arch, {}).get(n, 0) + counts[n] for n in mods}
                 for part in ("params", "opt"):
                     pairs = zip(leaves_with_names(states["cuda"][part]),
@@ -2453,7 +2637,8 @@ def phase_train_cross() -> dict:
                         check(torch.allclose(a, b, atol=atol, rtol=rtol),
                               f"{arch} {optimizer} k={k} {name}: cuda vs cpu max_abs_err {err}")
                         worst[part] = max(worst[part], err)
-                print(f"{tag}: {optimizer}, {k} microbatch(es), 3 steps: loss "
+                captured.close()
+                print(f"{tag}: {optimizer}, {k} microbatch(es), 3 steps (captured on the card): loss "
                       f"{float(metrics['cuda']['loss']):.6f} (cpu "
                       f"{float(metrics['cpu']['loss']):.6f}); kernel launches on the card "
                       f"{counts}; worst so far {json.dumps(worst)}")
@@ -3155,6 +3340,18 @@ def main() -> int:
     train_counts, train_stats = phase_train_full(grad_stats)
     dryrun_rows[DRYRUN_CELLS[2][0]] = phase_dryrun_train(train_stats)
     mark("train-full and dryrun train")
+    print(f"[train-graph] this process holds {torch.cuda.memory_allocated()} bytes, "
+          f"{torch.cuda.mem_get_info()[0]} free")
+    graph_run = child_phase("--train-graph", "[train-graph]")
+    graph_counts, graph_stats = graph_run["counts"], graph_run["stats"]
+    if "profiled_busy_s" in train_stats and "profiled_busy_s" in graph_stats["captured"]:
+        idle = {name: 1 - r["profiled_busy_s"] / r["profiled_wall_s"]
+                for name, r in (("eager", train_stats), ("captured", graph_stats["captured"]))}
+        print(f"[train-graph] idle share of a profiled step: eager {idle['eager']:.4f} "
+              f"([train-full]'s), captured {idle['captured']:.4f}; median s a step: eager "
+              f"{graph_stats['eager']['median_step_s']:.4f}, captured "
+              f"{graph_stats['captured']['median_step_s']:.4f}")
+    mark("train-graph")
     continuum_counts = child_phase("--continuum", "[continuum]")
     mark("continuum")
     cross_counts, cross_worst = phase_train_cross()
@@ -3179,6 +3376,7 @@ def main() -> int:
     check(not foreign, f"this process imported {foreign}")
     paths = {"stablelm-3b": stablelm_counts, "rwkv6-7b": rwkv_counts,
              "jamba-1.5-large-398b": jamba_counts, "stablelm-3b train": train_counts,
+             "stablelm-3b train-graph": graph_counts,
              "stablelm-3b continuum": continuum_counts,
              "stablelm-3b executors-continuum": executor_counts,
              "stablelm-3b executors-serve-full": serve_exec_counts,
@@ -3220,6 +3418,7 @@ def main() -> int:
           f"layer, its gradients within {grad_stats['worst_err']:.3e} of the plain twin's "
           f"(rwkv6_chunked {grad_stats['wkv_grad_err']:.3e}, mamba_chunk_scan "
           f"{grad_stats['mamba_grad_err']:.3e}); train cuda vs cpu {json.dumps(cross_worst)}")
+    print(f"[done] train-graph {json.dumps(graph_stats)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
@@ -3235,7 +3434,8 @@ def main() -> int:
     return 0
 
 
-CHILD_PHASES = {"--continuum": phase_continuum, "--launch-train": phase_launch_train,
+CHILD_PHASES = {"--train-graph": phase_train_graph, "--continuum": phase_continuum,
+                "--launch-train": phase_launch_train,
                 "--launch-train-full": phase_launch_train_full_cli,
                 "--launch-train-full-direct": phase_launch_train_full_direct}
 

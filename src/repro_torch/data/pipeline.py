@@ -4,7 +4,8 @@ Port of the reference's ``data/pipeline.py``. Batches come from a
 counter-keyed numpy PRNG, so every step's batch is reproducible across
 restarts and byte-identical to the reference's. A background thread keeps
 a small prefetch queue full. ``to_device`` stands in for the reference's
-``device_put_batch``.
+``device_put_batch``; ``copy_into`` writes a batch into the static tensors
+of a captured step.
 """
 
 from __future__ import annotations
@@ -120,3 +121,22 @@ def to_device(batch: dict, device: str | torch.device) -> dict:
         else:
             out[key] = host.clone()
     return out
+
+
+def copy_into(static: dict, batch: dict) -> None:
+    """Host batch -> the tensors ``static`` (the same keys, shapes and
+    dtypes), in place, as ``to_device`` sends it: to a card each leaf is
+    pinned afresh and sent with ``non_blocking=True`` (torch's cache of
+    pinned blocks hands a block out again only after the copy reading it
+    has run), so nothing here waits for the device."""
+    if set(static) != set(batch):
+        raise ValueError(f"batch keys {sorted(batch)}, want {sorted(static)}")
+    for key, dst in static.items():
+        host = _host_tensor(np.asarray(batch[key]))
+        if host.shape != dst.shape or host.dtype != dst.dtype:
+            raise ValueError(f"{key}: {tuple(host.shape)} {host.dtype}, want "
+                             f"{tuple(dst.shape)} {dst.dtype}")
+        if dst.is_cuda:
+            dst.copy_(host.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(host)

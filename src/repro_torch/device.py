@@ -2,7 +2,19 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
+
+# torch allows one CUDA graph capture at a time in a process, and every
+# capture of the port (the engine's decode steps, the train and eval steps)
+# runs on torch's one default capture stream: cuBLAS keeps a workspace for
+# each stream it has run on for the life of the process (64 MiB on an
+# H100), so a stream of each step's own would leave one behind per step.
+# Whoever runs work on that stream or captures holds this lock; so does a
+# step that empties the allocator's cache as it closes, so that no cache is
+# emptied beside another thread's capture.
+CAPTURE_LOCK = threading.Lock()
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

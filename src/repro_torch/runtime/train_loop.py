@@ -15,6 +15,12 @@ loses at most ``checkpoint_every`` steps. The store is anything with
 ``upload_bytes``, ``download_bytes``, ``client.create_snapshot`` and
 ``prvkey``: a ``core.fs.CFSClient`` (the port's or the reference's), or
 ``runtime.store.MemoryStore``.
+
+Where the reference jits its train and eval steps, ``train`` and
+``evaluate`` build one ``TrainStep`` and one ``EvalStep``: on a card each
+is captured in a CUDA graph after ``WARMUP_STEPS`` real steps and replayed
+from there, and its graph and pool go back to the card when the handler
+returns or raises.
 """
 
 from __future__ import annotations
@@ -26,12 +32,12 @@ import torch
 
 from ..configs import TrainConfig, get_config
 from ..configs.base import ModelConfig
-from ..data.pipeline import SyntheticTokens, to_device
+from ..data.pipeline import SyntheticTokens
 from ..device import resolve_device
 from ..models.spec import init_params, model_spec
 from ..serve.engine import ServeEngine
 from ..train.checkpoint import CheckpointManager
-from ..train.train_step import init_state, make_eval_step, make_train_step, split_microbatches
+from ..train.train_step import EvalStep, TrainStep, init_state, split_microbatches
 
 
 class SimulatedCrash(Exception):
@@ -102,19 +108,22 @@ def train_run(store: Any, colony: str, *, device: str | torch.device = "cuda",
     if restored is not None:
         state, start = restored
         start += 1  # resume after the checkpointed step
-    step_fn = make_train_step(cfg, tcfg)
+    step_fn = TrainStep(cfg, tcfg, state)  # writes ``state``'s tensors in place
 
     last_metrics: dict = {}
-    for step in range(start, steps):
-        if die_at_step is not None and step == die_at_step:
-            raise SimulatedCrash(f"chaos at step {step}")
-        host = data.batch_at(step)
-        if tcfg.microbatches > 1:  # the step takes the batch pre-split
-            host = split_microbatches(host, tcfg.microbatches)
-        state, metrics = step_fn(state, to_device(host, dev))
-        last_metrics = {k: float(v) for k, v in metrics.items()}
-        if (step + 1) % tcfg.checkpoint_every == 0 or step == steps - 1:
-            ckpt.save(state, step, async_=False)
+    try:
+        for step in range(start, steps):
+            if die_at_step is not None and step == die_at_step:
+                raise SimulatedCrash(f"chaos at step {step}")
+            host = data.batch_at(step)
+            if tcfg.microbatches > 1:  # the step takes the batch pre-split
+                host = split_microbatches(host, tcfg.microbatches)
+            metrics = step_fn(host)
+            last_metrics = {k: float(v) for k, v in metrics.items()}
+            if (step + 1) % tcfg.checkpoint_every == 0 or step == steps - 1:
+                ckpt.save(state, step, async_=False)
+    finally:
+        step_fn.close()
     return [{"final_step": steps - 1, "metrics": last_metrics, "run": run}], state
 
 
@@ -145,10 +154,12 @@ def evaluate(store: Any, colony: str, *, device: str | torch.device = "cuda",
     if restored is None:
         raise RuntimeError(f"no checkpoint for run {run}")
     state, step = restored
-    eval_fn = make_eval_step(cfg, tcfg)
+    eval_fn = EvalStep(cfg, tcfg, state["params"])
     data = SyntheticTokens(cfg, batch_size, seq_len, seed=9999)
-    ces = [float(eval_fn(state["params"], to_device(data.batch_at(i), dev))["ce"])
-           for i in range(batches)]
+    try:
+        ces = [float(eval_fn(data.batch_at(i))["ce"]) for i in range(batches)]
+    finally:
+        eval_fn.close()
     return [{"step": step, "eval_ce": float(np.mean(ces)), "run": run}]
 
 

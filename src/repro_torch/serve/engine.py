@@ -28,18 +28,14 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..data.pipeline import to_device
-from ..device import resolve_device
+from ..device import CAPTURE_LOCK, resolve_device
+from ..kernels.launches import GraphLaunches
 from ..models.model import decode_step, prefill
 from ..tree import leaves, leaves_with_names, map_leaves
 
 # Eager runs of a new step on the capture stream before its capture, as
 # torch's CUDA graph documentation asks (lazy cuBLAS handles and workspaces).
 WARMUP_STEPS = 3
-# torch allows one capture at a time in a process. Every capture runs on
-# torch's one default capture stream: cuBLAS keeps a workspace for each
-# stream it has run on for the life of the process (64 MiB on an H100), so
-# a stream of each engine's own would leave one behind per engine.
-_CAPTURE_LOCK = threading.Lock()
 # Decode keys an engine keeps, least recently used dropped first: each holds
 # a whole max_len cache (and on a card a graph), and a batcher's batch size
 # or a memory's length can take many values.
@@ -90,7 +86,8 @@ class DecodeStep:
     ``generator``. ``body`` decodes ``tok`` at ``pos``, samples the next
     token into ``tok``, advances ``pos`` and writes the token to ``out``;
     ``logits`` is its last output (on a card, the graph's output tensor).
-    ``graph`` is the captured body on a card, None on the CPU."""
+    ``graph`` is the captured body on a card, None on the CPU; each replay
+    adds the kernel launches the capture recorded (``GraphLaunches``)."""
 
     def __init__(self, decode, params: Any, cache: dict, batch: int, max_len: int,
                  sampled: bool, device: torch.device):
@@ -103,6 +100,7 @@ class DecodeStep:
         self.generator = torch.Generator(device=device) if sampled else None
         self.logits: torch.Tensor | None = None
         self.graph: torch.cuda.CUDAGraph | None = None
+        self._launches = GraphLaunches()
 
     def body(self) -> None:
         logits, _ = self._decode(self._params, self.tok, self.cache, self.pos)
@@ -120,14 +118,14 @@ class DecodeStep:
             graph.register_generator_state(self.generator)
         capturing = torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
         stream = capturing.capture_stream
-        with _CAPTURE_LOCK:
+        with CAPTURE_LOCK:
             stream.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(stream):
                 for _ in range(WARMUP_STEPS):
                     self.pos.zero_()  # any cache row will do, as long as it exists
                     self.body()
             torch.cuda.current_stream().wait_stream(stream)
-            with capturing:
+            with self._launches.capturing(), capturing:
                 self.body()
         self.graph = graph
 
@@ -146,6 +144,8 @@ class DecodeStep:
         step = self.body if self.graph is None else self.graph.replay
         for _ in range(steps):
             step()
+        if self.graph is not None:
+            self._launches.replayed(steps)
 
 
 class ServeEngine:

@@ -9,6 +9,14 @@ weighted load-balance and router z losses, reported as ``moe_lb`` and
 ``moe_z``; with multi-token prediction (deepseek) it adds
 ``mtp_loss_weight`` times the MTP block's CE on token t+2, reported as
 ``mtp_ce``.
+
+``make_train_step`` and ``make_eval_step`` are the bodies, which the
+dry-run traces. ``TrainStep`` and ``EvalStep`` are what the reference's
+``jax.jit`` of them is to its executor: each runs its body over static
+buffers (the batch, the state's own tensors, the metrics), and on a card
+captures it once in a CUDA graph after ``WARMUP_STEPS`` real steps and
+replays it for every later step. On the CPU the same body runs eagerly on
+the same buffers. There is no switch and no eager fallback on a card.
 """
 
 from __future__ import annotations
@@ -20,10 +28,23 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig, TrainConfig
+from ..data.pipeline import copy_into, to_device
+from ..device import CAPTURE_LOCK
+from ..kernels.launches import GraphLaunches
 from ..models.model import forward, mtp_logits
 from ..models.moe import moe_aux_loss
 from ..tree import leaves, map_leaves, rebuild
 from .optimizer import clip_by_global_norm, global_norm, lr_schedule, opt_init, opt_update
+
+# Real steps run eagerly on the capture stream before a train or eval step
+# is captured. One is enough (tests/test_torch_train_graph.py, on a card): it
+# makes what a capture must not, cuBLAS's handle and workspace for the capture
+# stream on the calling thread and on the autograd engine's device thread
+# (which runs the backward and the remat recomputation), that thread itself,
+# and the kernels' build and load. A train step's warm-up moves the
+# parameters and moments, so it is one of the run's own steps, not a
+# throwaway.
+WARMUP_STEPS = 1
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
@@ -156,3 +177,124 @@ def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig):
         return metrics
 
     return eval_step
+
+
+class _GraphStep:
+    """A step's static batch and metrics, and the step over them.
+
+    The first call copies its batch to the device, and those tensors are
+    the static batch; every later call copies its batch into them (the same
+    keys, shapes and dtypes, else ``ValueError``). On a card the first
+    ``WARMUP_STEPS`` calls run the body eagerly on torch's capture stream,
+    the next one captures it there in a CUDA graph of its own pool
+    (``thread_local``, so another thread's work on the card does not break
+    it; a failed capture raises) and replays it, and every later call
+    replays it. A capture executes nothing, and ``torch.cuda.graph`` empties
+    the allocator's cache on entry, so the warm-up's cached blocks go back
+    to the card before the graph's pool is drawn. Each replay adds the
+    kernel launches the capture recorded (``GraphLaunches``). On the CPU
+    every call runs the body. ``metrics`` is the last call's output: on a
+    card, from the capture on, the graph's output tensors, which the next
+    call overwrites. ``close`` gives the graph, its pool and the static
+    buffers back."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.batch: dict | None = None
+        self.metrics: dict = {}
+        self.calls = 0
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self._launches = GraphLaunches()
+        self._capturing = None
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                self._capturing = torch.cuda.graph(torch.cuda.CUDAGraph(),
+                                                   capture_error_mode="thread_local")
+
+    def _body(self) -> dict:
+        raise NotImplementedError
+
+    def __call__(self, batch: dict) -> dict:
+        if self.batch is None:
+            self.batch = to_device(batch, self.device)
+        else:
+            copy_into(self.batch, batch)
+        if self._capturing is None:
+            self.metrics = self._body()
+        elif self.graph is None and self.calls < WARMUP_STEPS:
+            self._warm_up()
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            self._launches.replayed()
+        self.calls += 1
+        return self.metrics
+
+    def _warm_up(self) -> None:
+        """The body run eagerly on the capture stream, where the capture
+        will find what it made."""
+        stream = self._capturing.capture_stream
+        current = torch.cuda.current_stream(self.device)
+        with CAPTURE_LOCK:
+            stream.wait_stream(current)
+            with torch.cuda.stream(stream):
+                self.metrics = self._body()
+            current.wait_stream(stream)
+
+    def _capture(self) -> None:
+        self.metrics = {}  # the warm-up's outputs, freed before the cache is emptied
+        with CAPTURE_LOCK, self._launches.capturing(), self._capturing:
+            self.metrics = self._body()
+        self.graph = self._capturing.cuda_graph
+
+    def close(self) -> None:
+        """Drops the graph, its pool, the static batch and the metrics (a
+        train step's state is the caller's), and on a card empties the
+        allocator's cache so the pool goes back to the card."""
+        self.metrics, self.batch, self.graph, self._capturing = {}, None, None, None
+        if self.device.type == "cuda":
+            with CAPTURE_LOCK:
+                torch.cuda.empty_cache()
+
+
+class TrainStep(_GraphStep):
+    """The port's ``jax.jit(make_train_step(cfg, tcfg))``: ``step(batch)``
+    takes a host batch in the layout the body takes ((k, B/k, ...) leaves
+    with ``microbatches`` k > 1, ``split_microbatches``), runs one train
+    step of ``state`` and returns its metrics (float32 0-d tensors).
+
+    ``state`` is the caller's ``init_state`` dict, and it stays the same
+    tensors: the body writes parameters and moments in place, and the step
+    counter is advanced in place, so after any number of steps a checkpoint
+    save reads them. The learning rate and the gradient norm are computed
+    inside the step. The first ``WARMUP_STEPS`` steps run eagerly (a run
+    with no more steps than that never captures); on a card the graph holds
+    the microbatch loop, remat, ``torch.autograd.grad`` with the backward
+    that the autograd engine runs on its own thread, clipping and the
+    optimizer's update."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, state: dict):
+        super().__init__(leaves(state["params"])[0].device)
+        self.state = state
+        self._step = make_train_step(cfg, tcfg)
+
+    def _body(self) -> dict:
+        new_state, metrics = self._step(self.state, self.batch)
+        self.state["step"].copy_(new_state["step"])
+        return metrics
+
+
+class EvalStep(_GraphStep):
+    """The port's ``jax.jit(make_eval_step(cfg, tcfg))`` on fixed
+    ``params``: ``step(batch)`` returns the metrics of a host batch. The
+    first ``WARMUP_STEPS`` batches run eagerly; on a card the next one is
+    captured and every later one replays it."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, params: Any):
+        super().__init__(leaves(params)[0].device)
+        self.params = params
+        self._eval = make_eval_step(cfg, tcfg)
+
+    def _body(self) -> dict:
+        return self._eval(self.params, self.batch)
