@@ -141,7 +141,22 @@ Phases, each of which exits non-zero when it fails:
      engine's seconds per batch and the share outside it (requests 5-8
      wait until batch 1 is on the engine; that wait is reported); this process
      then holds no module of ``repro`` or JAX;
- 14. ``[launch]``: the launchers' own CLIs through the broker and the
+ 14. ``[ha-broker]``, ``[ha-continuum]``, ``[ha-serve-full]``: the port's
+     replicated broker (``HA_BROKER_SOURCE``: three replicas behind Raft,
+     one HTTP server each, the digest check armed, no torch, no jax, no
+     module of ``repro``) and the mean signed round trip a replica; DAG 1
+     of the continuum behind it (CFS on a ``ShardedStorage`` of 3 shards,
+     R = 2, one shard dead once the data is in; the leader replica killed
+     at the first trainer crash; every process successful, a new leader,
+     no attempt held by two executors, no divergence, evaluate's output
+     equal to ``[executors-continuum]``'s within 1e-6, the scrub restoring
+     2 replicas of every key, launches counted); then
+     ``[executors-serve-full]`` behind it, the leader killed between the two
+     batches while a ``ChaosMonkey`` kills and respawns CPU workers that
+     drain ``HA_BACKLOG`` echo processes (tokens equal to generate, 32
+     flash attention launches a prefill, each process ended once; the
+     failover's seconds and each batch beside ``[executors-serve-full]``'s);
+ 15. ``[launch]``: the launchers' own CLIs through the broker and the
      executors: ``launch.serve`` of full-width stablelm-3b (float32) in
      this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
      attention launches a prefill and none of the scans, tokens equal to
@@ -157,7 +172,7 @@ Phases, each of which exits non-zero when it fails:
      (float32, AdamW, 2 steps, its whole state checkpointed through CFS and
      restored by ``evaluate``), held the same way to the direct handlers,
      each run in a child process of its own;
- 15. each kernel, its plain twin and, where there is one, a PyTorch call
+ 16. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
      mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
@@ -3038,6 +3053,564 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
     return counts, stats
 
 
+# The replicated broker process: the port's HAColonyCluster (three replicas
+# over one shared database, Raft electing the leader that serves assign and
+# close), one ColoniesHttpServer per replica, the digest check armed
+# (``statehash.enable``). Like BROKER_SOURCE it loads neither torch nor the
+# reference. It prints the three ports, then what it imported and the
+# leader; then it takes harness commands, one per stdin line, and answers
+# each with one JSON line: ``leader``; ``kill i`` (partition replica i away:
+# its HTTP server keeps answering, its Raft node hears nothing) and
+# ``revive i``; ``stats`` (terms, commit and applied indexes, the first
+# replication divergence, threads, replicas alive, and the last kill's
+# failover: seconds to a new leader and to the first assign a replica other
+# than the killed one served). No leader within 10 s exits 3.
+HA_BROKER_SOURCE = """\
+import json, sys, threading, time, types
+t0 = time.perf_counter()
+pkg = types.ModuleType("repro_torch")
+pkg.__path__ = [sys.argv[2]]
+sys.modules["repro_torch"] = pkg
+from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, statehash
+statehash.enable(True)
+cluster = HAColonyCluster(sys.argv[1], replicas=3, seed=int(sys.argv[3]))
+https = [ColoniesHttpServer(s) for s in cluster.servers]
+assigns = [[] for _ in cluster.servers]  # time.monotonic() of each assign served
+
+def counted(i, assign):
+    def wrapped(colony, ex, timeout):
+        p = assign(colony, ex, timeout)
+        if p is not None:
+            assigns[i].append(time.monotonic())
+        return p
+    return wrapped
+
+for i, srv in enumerate(cluster.servers):
+    srv.assign = counted(i, srv.assign)
+for h in https:
+    h.start()
+cluster.start(failsafe_interval=0.1)
+leader = cluster.wait_for_leader(10)
+if leader is None:
+    print(json.dumps({"error": "no leader within 10 s"}), flush=True)
+    sys.exit(3)
+print(json.dumps([h.port for h in https]), flush=True)
+tops = {n.split(".")[0] for n in sys.modules}
+unsigned = cluster.servers[0].handle({"payloadtype": "colonystats", "payload": "{}",
+                                      "identity": sys.argv[1]})
+print(json.dumps({"refuses_unsigned": unsigned.get("status") == 403,
+                  "start_s": time.perf_counter() - t0, "leader": leader,
+                  "torch_or_jax": sorted(tops & {"torch", "jax", "jaxlib"}),
+                  "reference": sorted(tops & {"repro"})}), flush=True)
+kill = {}
+
+def watch(nid, t_kill):
+    while cluster.raft.leader_id() in (None, nid):
+        time.sleep(0.002)
+    kill["elected_s"] = time.monotonic() - t_kill
+
+def failover():
+    if not kill:
+        return None
+    others = [t for i, ts in enumerate(assigns) if i != kill["index"] for t in ts
+              if t > kill["t"]]
+    return {"killed": kill["index"], "elected_s": kill.get("elected_s"),
+            "first_assign_s": min(others) - kill["t"] if others else None}
+
+for line in sys.stdin:
+    cmd = line.split()
+    try:
+        if cmd[0] == "leader":
+            out = {"leader": cluster.raft.leader_id()}
+        elif cmd[0] == "kill":
+            i = int(cmd[1])
+            kill.clear()
+            kill.update(index=i, t=time.monotonic())
+            cluster.kill_server(i)
+            threading.Thread(target=watch, args=(f"n{i}", kill["t"]), daemon=True).start()
+            out = {"killed": i}
+        elif cmd[0] == "revive":
+            cluster.revive_server(int(cmd[1]))
+            out = {"revived": int(cmd[1])}
+        elif cmd[0] == "stats":
+            nodes = cluster.raft.nodes
+            journal = cluster.raft.journal
+            out = {"leader": cluster.raft.leader_id(),
+                   "terms": {n: v.current_term for n, v in nodes.items()},
+                   "commit": {n: v.commit_index for n, v in nodes.items()},
+                   "applied": {n: v.last_applied for n, v in nodes.items()},
+                   "divergence": None if journal is None or journal.divergence is None
+                   else str(journal.divergence),
+                   "journaled": None if journal is None else
+                   {n: len(journal.entries(n)) for n in journal.nodes()},
+                   "assigns": [len(ts) for ts in assigns], "failover": failover(),
+                   "failsafe_errors": [s.failsafe_errors for s in cluster.servers],
+                   "replicas_alive": [h._thread.is_alive() and s._failsafe_thread.is_alive()
+                                      for h, s in zip(https, cluster.servers)],
+                   "threads": threading.active_count()}
+        else:
+            out = {"error": f"unknown command {line.strip()!r}"}
+    except Exception as e:
+        out = {"error": repr(e)}
+    print(json.dumps(out), flush=True)
+"""
+HA_SEED = 7
+# The HA clients' retry: during an election every replica answers 421 for
+# up to a second or two, and a call on the partitioned leader waits for
+# its step-down; the clients ride that out (tests/test_chaos_soak.py's)
+HA_RETRY_KW = dict(base_s=0.01, cap_s=0.3, deadline_s=20.0, budget=64, seed=3)
+HA_BACKLOG = 200  # echo processes the chaos-killed CPU workers drain
+
+
+def failover_allowance_s() -> int:
+    """What a failover can add to a healthy attempt's close: the partitioned
+    leader's step-down (check-quorum, 2 x the election timeout's upper end)
+    and, at worst, the Raft commit timeout of a close proposed there."""
+    from repro_torch.broker import raft
+
+    return math.ceil(2 * raft.ELECTION_TIMEOUT_MS[1] / 1000 + raft.COMMIT_TIMEOUT_S)
+
+
+class HABroker:
+    """The replicated broker process (``HA_BROKER_SOURCE``), its harness
+    commands, and the port's signed HTTP client over its three replicas."""
+
+    def __init__(self) -> None:
+        from repro_torch.core.client import Colonies
+        from repro_torch.core.crypto import Crypto
+
+        self.server_prv, self.colony_prv = Crypto.prvkey(), Crypto.prvkey()
+        t0 = time.perf_counter()
+        root = Path(__file__).resolve().parent
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", HA_BROKER_SOURCE, Crypto.id(self.server_prv),
+             str(root / "src" / "repro_torch"), str(HA_SEED)], cwd=root, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True)
+        try:
+            ports = self.proc.stdout.readline().strip()
+            info = self.proc.stdout.readline().strip()
+            self.start_s = time.perf_counter() - t0
+            check(ports.startswith("[") and bool(info),
+                  f"the replicated broker process printed {ports!r}, {info!r}")
+            self.ports = json.loads(ports)
+            self.info = json.loads(info)
+        except BaseException:
+            self.close()
+            raise
+        self.client = Colonies(self.transport())
+
+    def transport(self, ports: list[int] | None = None):
+        """A new HttpTransport over ``ports`` (all three by default), with
+        the HA retry policy: one per actor, like a socket of its own."""
+        from repro_torch.core.http_transport import HttpTransport
+        from repro_torch.core.retry import RetryPolicy
+
+        ports = ports or self.ports
+        return HttpTransport("127.0.0.1", ports[0], fallbacks=[("127.0.0.1", p) for p in ports[1:]],
+                             retry=RetryPolicy(**HA_RETRY_KW))
+
+    def command(self, cmd: str) -> dict:
+        check(self.alive(), f"the replicated broker process died before {cmd!r}")
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        out = json.loads(self.proc.stdout.readline())
+        check("error" not in out, f"broker harness {cmd!r}: {out}")
+        return out
+
+    def leader(self, timeout: float = 10.0) -> int:
+        """The leader replica's index, once there is one (an election may
+        be under way): no leader within ``timeout`` fails the run."""
+        deadline = time.perf_counter() + timeout
+        while (lid := self.command("leader")["leader"]) is None:
+            check(time.perf_counter() < deadline, f"no leader within {timeout} s")
+            time.sleep(0.02)
+        return int(lid[1:])
+
+    def stats(self) -> dict:
+        st = self.command("stats")
+        check(st["divergence"] is None, f"replication diverged: {st['divergence']}")
+        check(all(st["replicas_alive"]), f"a replica's server or failsafe died: {st}")
+        check(not any(st["failsafe_errors"]), f"failsafe errors {st['failsafe_errors']}")
+        return st
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def close(self) -> None:
+        if self.alive():
+            self.proc.stdin.close()
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=10)
+        self.proc.stdout.close()
+
+
+def phase_ha_broker(ha: HABroker) -> dict:
+    """The replicated broker is up with a leader, verifies signatures and
+    imported neither torch nor jax; the colony is created; 20 signed
+    ``colonystats`` calls to each replica give the mean round trip."""
+    from repro_torch.core.client import Colonies
+    from repro_torch.core.crypto import Crypto
+
+    tag = "[ha-broker]"
+    print(f"{tag} replicated broker process {ha.proc.pid} on ports {ha.ports}: "
+          f"{json.dumps(ha.info)}; up after {ha.start_s:.3f} s")
+    check(ha.info["refuses_unsigned"] is True, "the replicated broker took an unsigned request")
+    check(ha.info["torch_or_jax"] == [] and ha.info["reference"] == [],
+          f"the replicated broker imported {ha.info['torch_or_jax'] + ha.info['reference']}")
+    ha.client.add_colony(COLONY, Crypto.id(ha.colony_prv), ha.server_prv)
+    rtt = {}
+    for i, port in enumerate(ha.ports):
+        client = Colonies(ha.transport([port]))
+        seconds = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            stats = client.stats(COLONY, ha.colony_prv)
+            seconds.append(time.perf_counter() - t0)
+        rtt[i] = sum(seconds) / len(seconds)
+    check(stats["executors"] == 0 and stats["blob"]["stores"] == 0, f"colonystats {stats}")
+    mean = sum(rtt.values()) / len(rtt)
+    st = ha.stats()
+    print(f"{tag} colony {COLONY!r} created; 20 signed colonystats a replica: mean round trip "
+          f"{mean * 1e3:.3f} ms ({', '.join(f'replica {i} {s * 1e3:.3f}' for i, s in rtt.items())}"
+          f" ms); the broker process's colonystats counts its own blob stores: {stats['blob']}; "
+          f"{st['threads']} threads, leader {st['leader']}, terms {st['terms']}")
+    return {"start_s": ha.start_s, "rpc_mean_s": mean,
+            "rpc_mean_s_by_replica": list(rtt.values()), "threads": st["threads"]}
+
+
+def record_attempts(ex, log: list) -> None:
+    """Wrap each of ``ex``'s handlers to log (processid, retries, executor
+    name) of every attempt it is assigned."""
+    for name, fn in list(ex._handlers.items()):
+        def wrapped(ctx, *args, _fn=fn, **kwargs):
+            log.append((ctx.process.processid, ctx.process.retries, ex.executorname))
+            return _fn(ctx, *args, **kwargs)
+        ex._handlers[name] = wrapped
+
+
+def phase_ha_continuum(ha: HABroker, exec_stats: dict) -> tuple[dict, dict]:
+    """DAG 1 of tests/test_integration_continuum.py at [executors-continuum]'s
+    smoke size, float32, on the card, behind the three replicas: CFS on a
+    ShardedStorage of 3 shards (R = 2) of which one dies (a seeded
+    FaultPlan) once prepare_data is done; the two trainers crash at step 3
+    on their first attempt; the leader replica is killed once the first
+    crash is seen, so the failsafe's re-queue and the resume run on the new
+    leader; evaluate; then the replica and the shard come back and a scrub
+    restores 2 replicas of every key."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.blobstore import ShardedStorage
+    from repro_torch.core.client import Colonies
+    from repro_torch.core.fs import MemoryStorage
+    from repro_torch.core.spec import WorkflowSpec
+    from repro_torch.runtime import faults
+    from repro_torch.runtime import torch_executor as tx
+
+    tag = "[ha-continuum]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    layers = get_config("stablelm-3b", "smoke").num_layers
+    prv = ha.colony_prv
+    client = ha.client
+    store = ShardedStorage([MemoryStorage() for _ in range(3)], replicas=2)
+    dead_shard = 1
+    plan = faults.FaultPlan([faults.FaultRule(site, "crash", match={"shard": dead_shard},
+                                              times=None) for site in ("blob.put", "blob.get")],
+                            seed=HA_SEED)
+    # [executors-continuum]'s lease (3x the hand-off's attempt) plus what a
+    # failover can add to a healthy attempt's close
+    allowance = failover_allowance_s()
+    lease = math.ceil(3 * exec_stats["train_attempt_s"]) + allowance
+    print(f"{tag} train lease {lease} s: 3 x [executors-continuum]'s hand-off attempt "
+          f"({exec_stats['train_attempt_s']:.3f} s), rounded up, plus {allowance} s "
+          f"for a failover (check-quorum step-down and the Raft commit timeout)")
+    kw = dict(colony_prvkey=prv, device="cuda")
+    attempts: list = []
+    running = []
+
+    def start(ex):
+        running.append(ex)
+        record_attempts(ex, attempts)
+        ex.start(poll_timeout=0.2)
+        return ex
+
+    installed = killed = False
+    try:
+        start(tx.DataExecutor(Colonies(ha.transport()), COLONY, "ha-edge-1", "edge-data", store,
+                              **kw))
+        trainers = [start(tx.TrainerExecutor(Colonies(ha.transport()), COLONY, f"ha-h100-{c}",
+                                             "h100-pod", store, die_at_step=3, **kw))
+                    for c in "ab"]
+        wf = WorkflowSpec.from_dict({"colonyname": COLONY, "functionspecs": [
+            {"nodename": "prep", "funcname": "prepare_data",
+             "kwargs": {"shards": 2, "tokens_per_shard": 256},
+             "conditions": {"executortype": "edge-data", "dependencies": []},
+             "maxexectime": 30},
+            {"nodename": "train", "funcname": "train", "kwargs": dict(EXEC_TRAIN_KW, run="ha"),
+             "conditions": {"executortype": "h100-pod", "dependencies": ["prep"]},
+             "maxexectime": lease, "maxretries": 5},
+            {"nodename": "eval", "funcname": "evaluate",
+             "kwargs": {"arch": "stablelm-3b", "batch": 2, "seq_len": 16, "run": "ha",
+                        "eval_batches": EXEC_EVAL_BATCHES},
+             "conditions": {"executortype": "h100-pod", "dependencies": ["train"]},
+             "maxexectime": 60 + allowance},
+        ]})
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        r = client.submit_workflow(wf, prv)
+        procs = {q["spec"]["nodename"]: q for q in r["processes"]}
+        deadline = time.perf_counter() + 3 * lease + 300
+        while not killed and time.perf_counter() < deadline:
+            if not installed and client.get_process(procs["prep"]["processid"],
+                                                    prv)["state"] == "successful":
+                faults.install(plan)  # shard 1 dies before the first checkpoint
+                installed = True
+                print(f"{tag} prepare_data done after {time.perf_counter() - t0:.3f} s; blob "
+                      f"shard {dead_shard} dead from here on")
+            if installed and sum(t.failed for t in trainers):
+                before = ha.leader()
+                ha.command(f"kill {before}")
+                killed = True
+                print(f"{tag} first crash seen after {time.perf_counter() - t0:.3f} s; leader "
+                      f"replica {before} killed")
+            time.sleep(0.02)
+        check(killed, "no trainer crashed")
+        done = client.wait(procs["eval"]["processid"], prv, timeout=3 * lease + 300)
+        dag_s = time.perf_counter() - t0
+        dag = {name: mod.launches for name, mod in mods.items()}
+    finally:
+        for ex in running:
+            ex.stop()
+        if installed:
+            faults.uninstall()
+    st = ha.stats()
+    after = int(st["leader"][1:]) if st["leader"] else None
+    ha.command(f"revive {before}")
+    final = {n: client.get_process(q["processid"], prv) for n, q in procs.items()}
+    train_p = final["train"]
+    failed = [t.failed for t in trainers]
+    ev = done["out"][0] if done["out"] else None
+    print(f"{tag} DAG 1 in {dag_s:.3f} s: {[(n, p['state'], p['retries']) for n, p in final.items()]}"
+          f"; eval {ev or done['errors']}; trainers failed {failed}, processed "
+          f"{[t.processed for t in trainers]}; leader replica {before} -> {after}; attempts "
+          f"{[(a[0][:8], a[1], a[2]) for a in attempts]}; failover {st['failover']}")
+    check(all(p["state"] == "successful" for p in final.values()),
+          f"processes {[(n, p['state'], p['errors']) for n, p in final.items()]}")
+    check(train_p["retries"] >= 1 and train_p["out"][0]["final_step"] == 3, f"train: {train_p}")
+    check(after not in (None, before), f"the leader is {after} after killing replica {before}")
+    keys = [(pid, retries) for pid, retries, _ in attempts]
+    check(len(keys) == len(set(keys)), f"an attempt was assigned to two executors: {attempts}")
+    # the bar [continuum] holds a crashed-and-resumed run to
+    err = abs(ev["eval_ce"] - exec_stats["eval_ce"])
+    print(f"{tag} eval_ce {ev['eval_ce']!r} against [executors-continuum]'s "
+          f"{exec_stats['eval_ce']!r}: {err:.3e} (atol 1e-6)")
+    check(math.isfinite(ev["eval_ce"]) and err <= 1e-6, f"eval_ce differs by {err}")
+    want = {name: (4 * 2 + EXEC_EVAL_BATCHES) * layers if name == "flash_attention" else 0
+            for name in mods}
+    print(f"{tag} launches {dag} (want {want})")
+    check(dag == want, f"launches {dag}, want {want}")
+    degraded = sum(store.replica_count(k) < 2 for k in store.keys())
+    report = store.scrub()
+    blob = store.stats()
+    full = all(store.replica_count(k) == 2 for k in store.keys())
+    print(f"{tag} blob shard {dead_shard} back: {degraded} of {len(store.keys())} keys had one "
+          f"replica; scrub {report}; every key on 2 replicas: {full}; counters: repairs "
+          f"{blob['repairs']}, put_failures {blob['put_failures']}, get_failures "
+          f"{blob['get_failures']}, per shard {json.dumps(blob['per_shard'])}")
+    check(plan.fired() > 0 and degraded > 0, f"the dead shard fired {plan.fired()} faults")
+    check(report["lost"] == 0 and report["repaired"] >= degraded and full,
+          f"scrub {report}, {degraded} degraded")
+    st = ha.stats()
+    seconds = time.perf_counter() - t_phase
+    print(f"{tag} broker after the revive: terms {st['terms']}, applied {st['applied']}, "
+          f"journaled {st['journaled']}; {seconds:.1f} s")
+    return dag, {"train_lease_s": lease, "dag1_s": dag_s, "trainers_failed": failed,
+                 "train_retries": train_p["retries"], "eval_ce": ev["eval_ce"],
+                 "eval_ce_err": err, "leader": [before, after], "blob_scrub": report,
+                 "blob_degraded": degraded, "blob_repairs": blob["repairs"],
+                 "failover": st["failover"], "seconds": seconds}
+
+
+def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
+    """[executors-serve-full] behind the three replicas: full-width
+    stablelm-3b (32 layers, float32) in a ServeExecutor behind a generator of
+    queuesize 4, 8 signed requests in 2 batches, the leader replica killed
+    after the first batch fires and before the second; throughout, a seeded
+    ChaosMonkey kills and respawns CPU-only echo workers that drain a backlog
+    of HA_BACKLOG processes in the same colony."""
+    from repro_torch.core.client import Colonies
+    from repro_torch.core.executor import ExecutorBase
+    from repro_torch.core.fs import CFSClient, MemoryStorage
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.runtime import torch_executor as tx
+    from repro_torch.runtime.chaos import ChaosMonkey, SimulatedCrash
+    from repro_torch.serve.batcher import InferenceClient, pad_prompts
+
+    tag = "[ha-serve-full]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    client, prv = ha.client, ha.colony_prv
+    storage = MemoryStorage()
+    ex = tx.ServeExecutor(Colonies(ha.transport()), COLONY, "ha-serve-full", "h100-serve",
+                          storage, colony_prvkey=prv, arch="stablelm-3b", variant="full",
+                          max_len=max(PROMPT_LENS) + NEW_TOKENS, device="cuda")
+    engine, cfg = ex.engine, ex.engine.cfg
+    check(cfg.num_layers == 32 and cfg.param_dtype == "float32",
+          f"{cfg.num_layers} layers, {cfg.param_dtype}")
+    engine_s, batch_t = [], []  # the engine's s and start time per batch
+    generate = engine.generate
+    batch_started = threading.Event()
+
+    def timed_generate(*args, **kwargs):
+        batch_started.set()
+        t = time.perf_counter()
+        out = generate(*args, **kwargs)
+        engine_s.append(time.perf_counter() - t)
+        batch_t.append(t)
+        return out
+
+    class EchoWorker(ExecutorBase):
+        """A CPU-only worker; killed, it dies holding its process."""
+
+        dead = False
+
+        def _execute(self, process) -> None:
+            try:
+                super()._execute(process)
+            except SimulatedCrash:
+                self._stop.set()  # never closed: the failsafe re-queues it
+
+    # CPU-only echo workers; a killed one dies mid-process and a fresh one
+    # replaces it
+    pool, everyone = [], []
+    echoed: list[str] = []  # the processid of every echo that returned
+
+    def spawn() -> None:
+        w = EchoWorker(Colonies(ha.transport()), COLONY, f"echo-{len(everyone)}", "cpu-echo",
+                       colony_prvkey=prv)
+
+        def echo(ctx, i, _w=w):
+            time.sleep(0.02)
+            if _w.dead:
+                raise SimulatedCrash("killed by the chaos monkey")
+            echoed.append(ctx.process.processid)
+            return [i]
+
+        w.register_function("echo", echo)
+        w.start(poll_timeout=0.3)
+        pool.append(w)
+        everyone.append(w)
+
+    def kill() -> None:
+        if len(pool) > 1:
+            victim = pool.pop(0)
+            victim.dead = True
+            victim._stop.set()  # its loop ends after the process it holds
+
+    monkey = ChaosMonkey(kill, spawn, interval=(0.5, 2.0), seed=HA_SEED)
+    engine.generate = timed_generate
+    try:
+        for _ in range(3):
+            spawn()
+        backlog = client.submit_workflow({"colonyname": COLONY, "functionspecs": [
+            {"nodename": f"echo-{i}", "funcname": "echo", "args": [i], "maxexectime": 3,
+             "maxretries": 20, "conditions": {"executortype": "cpu-echo", "dependencies": []}}
+            for i in range(HA_BACKLOG)]}, prv)
+        backlog_pids = [q["processid"] for q in backlog["processes"]]
+        monkey.start()
+        ex.start(poll_timeout=0.2)
+        g = client.add_generator({"colonyname": COLONY, "name": "ha-serve-full", "queuesize": 4,
+                                  "timeout": 60.0, "workflow": serve_workflow()}, prv)
+        infc = InferenceClient(client, CFSClient(client, storage, prv), COLONY, g["generatorid"],
+                               prv)
+        requests = make_requests(PROMPT_LENS, cfg.vocab_size, NEW_TOKENS, seed=1)
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        rids = [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in requests[:4]]
+        check(batch_started.wait(120), "the generator did not fire")
+        before = ha.leader()
+        ha.command(f"kill {before}")  # after the first batch fired, before the second
+        t_kill = time.perf_counter()
+        rids += [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in requests[4:]]
+        served = {rid: infc.wait(rid, timeout=600) for rid in rids}
+        wall_s = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in mods.items()}
+        deadline = time.perf_counter() + 120
+        while time.perf_counter() < deadline:
+            stats = client.stats(COLONY, prv)
+            if stats["waiting"] == 0 and stats["running"] == 0:
+                break
+            time.sleep(0.2)
+        backlog_s = time.perf_counter() - t0
+    finally:
+        monkey.stop()
+        ex.stop()
+        for w in everyone:
+            w.stop()
+        engine.generate = generate
+    st = ha.stats()
+    after = st["leader"]
+    ha.command(f"revive {before}")
+    batches = [q for q in client.get_processes(COLONY, prv, state="successful", count=2000)
+               if q["assignedexecutorid"] == ex.executorid]
+    batches.sort(key=lambda q: q["submissiontime"])
+    sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
+    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
+    print(f"{tag} {len(requests)} requests in {len(batches)} batches of {sizes}; engine stats "
+          f"{engine.stats}; serve executor processed {ex.processed}, failed {ex.failed}; "
+          f"launches {counts} (want {want}); leader replica {before} -> {after}")
+    check(sizes == [4, 4] and engine.stats["batches"] == 2 and ex.processed == 2
+          and ex.failed == 0, f"batches of {sizes}, {engine.stats}, processed {ex.processed}")
+    check(counts == want, f"launches {counts}, want {want}")
+    check(after not in (None, f"n{before}"), f"the leader is {after} after killing {before}")
+    for q in batches:
+        packed = q["spec"]["kwargs"]["packed_args"]
+        direct = engine.generate(pad_prompts(packed), max_new_tokens=NEW_TOKENS).tolist()
+        check([served[r["request_id"]] for r in packed] == direct,
+              "served tokens differ from the engine's own generate on the batch")
+    # every backlog process ended, once: one successful close each, and
+    # the closes the workers had accepted add up to the backlog
+    final = {q["processid"]: q for q in client.get_processes(COLONY, prv, count=2000)}
+    ends = [final[pid]["state"] for pid in backlog_pids]
+    closes = sum(w.processed for w in everyone)
+    retried = sum(final[pid]["retries"] > 0 for pid in backlog_pids)
+    print(f"{tag} backlog of {HA_BACKLOG}: {ends.count('successful')} successful, "
+          f"{ends.count('failed')} failed, {retried} re-queued after a worker died, closes "
+          f"accepted {closes}, executed {len(echoed)} times; chaos monkey kills "
+          f"{monkey.kills}, {len(everyone)} workers in all; drained {backlog_s:.3f} s after the "
+          f"first request")
+    check(all(s == "successful" for s in ends) and closes == HA_BACKLOG
+          and set(echoed) == set(backlog_pids), f"backlog {ends.count('successful')} "
+          f"successful of {HA_BACKLOG}, {closes} closes accepted")
+    check(monkey.kills >= 1, "the chaos monkey killed no worker")
+    fo = st["failover"]
+    check(fo is not None and fo["elected_s"] is not None and fo["first_assign_s"] is not None,
+          f"failover {fo}")
+    n_tok = len(requests) * NEW_TOKENS
+    outside = 1 - sum(engine_s) / wall_s
+    stats = {"wall_s": wall_s, "tokens_per_s": n_tok / wall_s, "engine_s": engine_s,
+             "outside_engine_share": outside, "failover": fo,
+             "kill_to_second_batch_s": batch_t[1] - t_kill,
+             "backlog_s": backlog_s, "monkey_kills": monkey.kills, "backlog_retried": retried,
+             "broker_threads": st["threads"]}
+    print(f"{tag} failover: a new leader {fo['elected_s']:.3f} s after the kill, its first assign "
+          f"{fo['first_assign_s']:.3f} s after; first submit to last result {wall_s:.3f} s, "
+          f"{n_tok / wall_s:.1f} tokens/s (alone, [executors-serve-full]: {alone['wall_s']:.3f} s, "
+          f"{alone['tokens_per_s']:.1f}); engine per batch {[round(x, 4) for x in engine_s]} s "
+          f"(alone {[round(x, 4) for x in alone['engine_s']]}); outside the engine {outside:.4f} "
+          f"of the wall time (alone {alone['outside_engine_share']:.4f}); the second batch "
+          f"started {stats['kill_to_second_batch_s']:.3f} s after the kill; broker threads "
+          f"{st['threads']}")
+    del ex, engine
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} {stats['seconds']:.1f} s")
+    return counts, stats
+
+
 def phase_launch_serve() -> tuple[dict, dict]:
     """``launch.serve.main`` of full-width stablelm-3b on the card: the
     broker in this process, a ServeExecutor (float32) behind a generator of
@@ -3365,6 +3938,15 @@ def main() -> int:
     finally:
         broker.close()
     mark("broker and executors")
+    ha = HABroker()
+    try:
+        ha_broker_stats = phase_ha_broker(ha)
+        ha_cont_counts, ha_cont_stats = phase_ha_continuum(ha, executor_stats)
+        ha_serve_counts, ha_serve_stats = phase_ha_serve_full(ha, serve_exec_stats)
+        check(ha.alive(), "the replicated broker process died")
+    finally:
+        ha.close()
+    mark("ha")
     launch_serve_counts, launch_stats = phase_launch_serve()
     mark("launch serve")
     launch_train_counts = child_phase("--launch-train", "[launch]")
@@ -3380,6 +3962,8 @@ def main() -> int:
              "stablelm-3b continuum": continuum_counts,
              "stablelm-3b executors-continuum": executor_counts,
              "stablelm-3b executors-serve-full": serve_exec_counts,
+             "stablelm-3b ha-continuum": ha_cont_counts,
+             "stablelm-3b ha-serve-full": ha_serve_counts,
              "stablelm-3b launch-serve": launch_serve_counts,
              "stablelm-3b launch-train": launch_train_counts,
              "stablelm-3b launch-train-full": launch_full_counts,
@@ -3421,6 +4005,8 @@ def main() -> int:
     print(f"[done] train-graph {json.dumps(graph_stats)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
+    print(f"[done] ha-broker {json.dumps(ha_broker_stats)}; ha-continuum "
+          f"{json.dumps(ha_cont_stats)}; ha-serve-full {json.dumps(ha_serve_stats)}")
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
           f"{json.dumps(launch_full_stats)}")
     print(f"[done] dryrun {json.dumps(dryrun_rows)}")

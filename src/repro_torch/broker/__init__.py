@@ -1,32 +1,44 @@
 """The broker side of ColonyOS, copied from the reference's ``repro.core``
-(``server``, ``database``, ``generator``, the metadata half of ``fs``,
-the server half of ``http_transport``) and trimmed to what the port's
-executors and client use: one replica, an in-memory database, no cron.
+(``server``, ``database``, ``generator``, ``cron``, ``raft``,
+``cluster``, the metadata half of ``fs``, the server half of
+``http_transport``) and the runtime half of its
+``analysis.statehash``: an in-memory database, one replica
+(``standalone_server``) or several behind Raft (``HAColonyCluster``,
+paper §3.4.1, Fig. 3).
 
 ColonyOS deploys the broker as a service of its own, which executors
 reach only through the signed JSON protocol. This package imports the
-standard library and ``repro_torch.core``, never torch, so that
-``chip_smoke.py`` can run it as a separate process beside the executors
-on the card::
+standard library and the stdlib modules ``repro_torch.core`` and
+``repro_torch.runtime.faults``, never torch, so that ``chip_smoke.py``
+can run it as a separate process beside the executors on the card::
 
     srv = standalone_server(server_id)
     http = ColoniesHttpServer(srv)
     http.start()
     srv.start_background(failsafe_interval=0.1)
+
+or, replicated::
+
+    cluster = HAColonyCluster(server_id, replicas=3, seed=0)
+    https = [ColoniesHttpServer(s) for s in cluster.servers]
+    cluster.start(failsafe_interval=0.1)
 """
 
 from .cfs import CFSExtension
+from .cluster import HAColonyCluster
+from .cron import CronExtension
 from .generator import GeneratorExtension
 from .http_server import ColoniesHttpServer
 from .server import ColoniesServer
 
 
 def standalone_server(serverid: str) -> ColoniesServer:
-    """One broker with generators and CFS metadata wired."""
+    """One broker with cron, generators and CFS metadata wired."""
     srv = ColoniesServer(serverid)
+    CronExtension(srv)
     GeneratorExtension(srv)
     CFSExtension(srv)
     return srv
 
 
-__all__ = ["ColoniesHttpServer", "ColoniesServer", "standalone_server"]
+__all__ = ["ColoniesHttpServer", "ColoniesServer", "HAColonyCluster", "standalone_server"]

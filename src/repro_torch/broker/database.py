@@ -23,6 +23,7 @@ from typing import Any
 
 from ..core.errors import ConflictError, NotFoundError
 from ..core.process import RUNNING, WAITING, Process, now_ns
+from .statehash import process_state_tuple
 
 # A dedup record only needs to outlive its client's retry window.
 DEDUP_TTL_NS = 600 * 10**9
@@ -100,6 +101,7 @@ class MemoryDatabase:
         self._snapshots: dict[str, dict[str, dict]] = {}  # colony -> snapshotid -> snap
         self._generators: dict[str, dict] = {}
         self._packs: dict[str, list[dict]] = {}
+        self._crons: dict[str, dict] = {}
 
     def colony_lock(self, colony: str) -> threading.RLock:
         with self._glock:
@@ -245,6 +247,12 @@ class MemoryDatabase:
     def waiting_past_deadline(self, ts: int) -> list[Process]:
         return self._past(ts, WAITING, "waitdeadline_ns")
 
+    def replica_state(self, colony: str) -> list[tuple]:
+        """Replication-visible rows of one colony (``statehash``'s
+        ``process_state_tuple`` of each process), for digest cross-checks."""
+        with self.colony_lock(colony):
+            return [process_state_tuple(p) for p in self._colony_procs(colony)]
+
     def colony_stats(self, colony: str) -> dict[str, int]:
         stats: dict[str, int] = {}
         with self.colony_lock(colony):
@@ -384,3 +392,31 @@ class MemoryDatabase:
     def pack_take_all(self, generatorid: str) -> list[dict]:
         with self._glock:
             return self._packs.pop(generatorid, [])
+
+    # the cron table (the leader's two-step protocol, broker/cron.py)
+    def cron_put(self, entry: dict) -> None:
+        with self._glock:
+            self._crons[entry["cronid"]] = dict(entry)
+
+    def cron_get(self, cronid: str) -> dict | None:
+        with self._glock:
+            e = self._crons.get(cronid)
+            return dict(e) if e is not None else None
+
+    def cron_del(self, cronid: str) -> None:
+        with self._glock:
+            self._crons.pop(cronid, None)
+
+    def cron_list(self, colony: str) -> list[dict]:
+        with self._glock:
+            entries = [dict(e) for e in self._crons.values() if e["colonyname"] == colony]
+        entries.sort(key=lambda e: (e.get("added", 0), e["cronid"]))
+        return entries
+
+    def cron_due(self, ts: int) -> list[dict]:
+        """Entries with ``deadline < ts``, earliest deadline first (the
+        order of the reference's deadline heap)."""
+        with self._glock:
+            due = [dict(e) for e in self._crons.values() if e.get("deadline", 0) < ts]
+        due.sort(key=lambda e: (e.get("deadline", 0), e["cronid"]))
+        return due

@@ -5,7 +5,9 @@ reference's ``repro/core/http_transport.py`` (paper §3.3).
 reply, its error status as the HTTP status; ``GET /health`` answers
 ``{"status": "ok"}``. Each request runs on its own thread, so a hanging
 long-poll ``assign`` never blocks the others. Executors always dial the
-broker, never the reverse. Stdlib only.
+broker, never the reverse. A fault injected in the server's crash windows
+(``runtime/faults.py``) closes the connection without a reply. Stdlib
+only.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from ..runtime import faults
 from .server import ColoniesServer
 
 
@@ -34,7 +37,17 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, json.JSONDecodeError):
             self._reply(400, {"error": "malformed request", "status": 400})
             return
-        resp = self.colonies.handle(envelope)  # may hang (long-poll)
+        try:
+            resp = self.colonies.handle(envelope)  # may hang (long-poll)
+        except faults.FaultInjected:
+            # Injected server crash window: die without replying, so the
+            # client sees a reset connection, not a clean error body.
+            self.close_connection = True
+            try:
+                self.connection.close()
+            except OSError:
+                pass
+            return
         self._reply(int(resp.get("status", 200)) if "error" in resp else 200, resp)
 
     def do_GET(self) -> None:  # noqa: N802

@@ -10,11 +10,20 @@ answers from the database. What it keeps of the reference:
   * the ``maxexectime``/``maxwaittime`` failsafe scanner (§3.4);
   * exactly-once KEYED requests: a repeated ``(identity, msgid)`` gets the
     recorded reply, and the handler does not run again;
-  * generators and CFS metadata (``generator.py``, ``cfs.py``).
+  * generators, cron and CFS metadata (``generator.py``, ``cron.py``,
+    ``cfs.py``);
+  * the HA hooks (§3.4.1): ``set_leader_check`` and ``set_op_proposer``
+    make this server one replica of ``cluster.HAColonyCluster``, which
+    serializes assign and close through the Raft log (a follower answers
+    ``assign`` with 421 and the leader's id); the failsafe and the
+    extensions' ticks run on the leader only;
+  * the fault sites ``server.pre_dispatch`` and ``server.post_commit``
+    (``runtime/faults.py``).
 
-One replica, always the leader: the reference's Raft replication, its
-cron extension, its unverified in-process path, its fault-injection sites
-and its analysis hooks are left out.
+A server with no hooks set is the standalone broker: always the leader,
+assign and close applied under the colony lock. The reference's
+unverified in-process path and its analysis hooks are left out; its
+lock-order contracts stand as docstring lines.
 """
 
 from __future__ import annotations
@@ -25,19 +34,30 @@ import secrets
 import threading
 from typing import Any, Callable
 
-from ..core import idempotency
+from ..core import blobstore, idempotency
 from ..core.crypto import Crypto
 from ..core.errors import (
     AuthError,
     ColoniesError,
     ConflictError,
     NotFoundError,
+    NotLeaderError,
     TimeoutError_,
     ValidationError,
 )
-from ..core.process import FAILED, RUNNING, STATES, SUCCESSFUL, WAITING, Process, now_ns
+from ..core.process import (
+    FAILED,
+    RUNNING,
+    STATES,
+    SUCCESSFUL,
+    WAITING,
+    Process,
+    new_id,
+    now_ns,
+)
 from ..core.security import canonical
 from ..core.spec import FunctionSpec, WorkflowSpec
+from ..runtime import faults
 from .database import Colony, Executor, MemoryDatabase
 
 
@@ -94,13 +114,22 @@ class ColoniesServer:
     """One Colonies server. ``serverid`` is the identity of the server
     owner, the only identity that may create colonies."""
 
-    name = "colonies-0"
+    # HA replicas re-check leadership at this cadence while parked in
+    # ``assign``; standalone servers sleep the full long-poll timeout and
+    # rely purely on queue notifications.
+    HA_LEADER_RECHECK_S = 0.5
 
-    def __init__(self, serverid: str) -> None:
+    def __init__(self, serverid: str, db: MemoryDatabase | None = None,
+                 name: str = "colonies-0") -> None:
+        self.name = name
         self.serverid = serverid
-        self.db = MemoryDatabase()
+        self.db = db if db is not None else MemoryDatabase()
         self._signals: dict[tuple[str, str], _QueueSignal] = {}
         self._signals_guard = threading.Lock()
+        # Leader-local per-colony assign serialization for the HA path (the
+        # shared db.colony_lock cannot be held across a Raft proposal: the
+        # commit is applied on another thread that needs that same lock).
+        self._local_assign_locks: dict[str, threading.RLock] = {}
         self._handlers: dict[str, Callable[[str, dict], Any]] = {
             "addcolony": self._h_add_colony,
             "addexecutor": self._h_add_executor,
@@ -121,7 +150,13 @@ class ColoniesServer:
             "getprocesses": self._h_get_processes,
             "colonystats": self._h_stats,
         }
-        self.extensions: list[Any] = []  # generator and CFS handlers register here
+        self.extensions: list[Any] = []  # generator, cron and CFS handlers register here
+        # HA hooks: standalone servers are always the leader. ``_propose_op``
+        # serializes replicated ops (assign, close) through the Raft log;
+        # every proposed entry carries a leader-stamped ``ts`` and a stable
+        # ``opid`` so the apply is deterministic and replay-safe.
+        self._is_leader: Callable[[], bool] = lambda: True
+        self._propose_op: Callable[[dict], Any] | None = None
         self._stop = threading.Event()
         self._failsafe_thread: threading.Thread | None = None
         # exceptions swallowed (but counted) by the failsafe loop
@@ -133,6 +168,11 @@ class ColoniesServer:
         ``{"error": ..., "status": ...}``."""
         try:
             identity, ptype, payload = open_envelope(envelope)
+            # Injected server death before dispatch: the request has no
+            # effect and the transport sees a dead connection. The raise
+            # (FaultInjected is a ConnectionError, not a ColoniesError)
+            # deliberately escapes the handlers below.
+            faults.hit("server.pre_dispatch", payloadtype=ptype)
             handler = self._handlers.get(ptype)
             if handler is None:
                 for ext in self.extensions:
@@ -151,11 +191,20 @@ class ColoniesServer:
                 cached = self.db.dedup_get(dedup_key)
                 if cached is not None:
                     return {"result": cached, "replayed": True}
-            result = handler(identity, payload)
+            token = idempotency.set_current(msgid)
+            try:
+                result = handler(identity, payload)
+            finally:
+                idempotency.reset_current(token)
             # successes only: a handler raises before it mutates anything
             if dedup_key:
                 self.db.dedup_put(dedup_key, now_ns(), result)
+            # The crash-after-commit-before-reply window: effect and dedup
+            # record are stored, the reply is lost.
+            faults.hit("server.post_commit", payloadtype=ptype)
             return {"result": result}
+        except NotLeaderError as e:
+            return {"error": str(e), "status": e.status, "leader": e.leader}
         except ColoniesError as e:
             return {"error": str(e), "status": e.status}
 
@@ -313,10 +362,14 @@ class ColoniesServer:
     def assign(self, colony: str, ex: Executor, timeout: float) -> Process | None:
         """Long-poll assignment (paper §3.3: the server *hangs* the request):
         the request parks on its (colony, executortype) signal and is woken
-        when that queue gains work."""
+        when that queue gains work. An HA replica answers ``NotLeaderError``
+        unless it leads, and re-checks that every ``HA_LEADER_RECHECK_S``
+        while it waits. Contract: entered holding no lock."""
         deadline = now_ns() + int(timeout * 1e9)
         sig = self._signal((colony, ex.executortype))
         while not self._stop.is_set():
+            if not self._is_leader():
+                raise NotLeaderError("assign must be served by the leader")
             with sig.cv:
                 version = sig.version
             p = self._try_assign_once(colony, ex)
@@ -325,41 +378,121 @@ class ColoniesServer:
             remaining = (deadline - now_ns()) / 1e9
             if remaining <= 0:
                 return None
+            # HA replicas wake periodically to notice lost leadership;
+            # standalone servers sleep until notified (or timeout).
+            tick = self.HA_LEADER_RECHECK_S if self._propose_op is not None else remaining
             with sig.cv:
                 if sig.version == version:  # nothing arrived since the probe
-                    sig.cv.wait(timeout=remaining)
+                    sig.cv.wait(timeout=min(remaining, tick))
         return None
 
+    def _local_assign_lock(self, colony: str) -> threading.RLock:
+        with self._signals_guard:
+            lk = self._local_assign_locks.get(colony)
+            if lk is None:
+                lk = self._local_assign_locks[colony] = threading.RLock()
+            return lk
+
     def _try_assign_once(self, colony: str, ex: Executor) -> Process | None:
-        with self.db.colony_lock(colony):
+        if self._propose_op is not None:
+            # HA: leader-local serialization; Raft log order plus the
+            # WAITING CAS in apply_assign make assignment exactly-once.
+            lock = self._local_assign_lock(colony)
+        else:
+            lock = self.db.colony_lock(colony)
+        with lock:
             for p in self.db.candidates(colony, ex.executortype, ex.executorname):
-                if p.state != WAITING:
-                    continue
-                ts = now_ns()
-                p.state = RUNNING
-                p.isassigned = True
-                p.assignedexecutorid = ex.executorid
-                p.starttime_ns = ts
-                maxexec = p.spec.maxexectime
-                p.deadline_ns = ts + maxexec * 10**9 if maxexec and maxexec > 0 else 0
-                # Dataflow (Table 4): inputs = concatenated parent outputs.
-                if p.parents:
-                    p.inputs = [x for pid in p.parents for x in self.db.get_process(pid).output]
-                self.db.update_process(p)
-                return p
+                # Leader-stamped entry: the wall clock and the op identity
+                # are fixed here, before the Raft log, so the apply is
+                # deterministic on every replica.
+                op = {
+                    "op": "assign",
+                    "opid": new_id(),
+                    "processid": p.processid,
+                    "executorid": ex.executorid,
+                    "ts": now_ns(),
+                    # the request's idempotency key rides the Raft entry
+                    # ("" for unkeyed callers)
+                    "msgid": idempotency.current(),
+                }
+                if self._propose_op is not None:
+                    # HA path: serialize through the Raft log, then confirm
+                    # this op won the apply's WAITING CAS (a failsafe expiry
+                    # or leader churn may have beaten it; the cluster
+                    # swallows that conflict).
+                    self._propose_op(op)
+                    assigned = self.db.get_process(p.processid)
+                    if assigned.state != RUNNING or assigned.assignedexecutorid != ex.executorid:
+                        continue  # lost the race: try the next candidate
+                    return assigned
+                self.apply_assign(op)
+                return self.db.get_process(p.processid)
         return None
+
+    def apply_assign(self, op: dict) -> None:
+        """State-machine apply of an assign op (also run by the Raft commit):
+        a compare-and-swap on ``state == WAITING`` under the colony lock,
+        so a replay after a failover, or a failsafe reset racing the
+        assignment, raises ``ConflictError`` instead of mutating twice."""
+        p = self.db.get_process(op["processid"])
+        with self.db.colony_lock(p.colonyname):
+            p = self.db.get_process(op["processid"])  # re-read under the lock
+            if p.state != WAITING:
+                raise ConflictError("process no longer waiting")
+            ts = op["ts"]
+            p.state = RUNNING
+            p.isassigned = True
+            p.assignedexecutorid = op["executorid"]
+            p.starttime_ns = ts
+            maxexec = p.spec.maxexectime
+            p.deadline_ns = ts + maxexec * 10**9 if maxexec and maxexec > 0 else 0
+            # Dataflow (Table 4): inputs = concatenated parent outputs.
+            if p.parents:
+                p.inputs = [x for pid in p.parents for x in self.db.get_process(pid).output]
+            self.db.update_process(p)
 
     # -- close ---------------------------------------------------------------
     def _h_close(self, identity: str, payload: dict) -> dict:
-        p = self.db.get_process(payload["processid"])
+        pid = payload["processid"]
+        p = self.db.get_process(pid)
         ex = self._require_executor(identity, p.colonyname)
         if p.assignedexecutorid != ex.executorid or p.state != RUNNING:
             # e.g. the failsafe already reset this process (paper §4.1:
             # "The previous executor then receives an error").
             raise ConflictError("process is not assigned to this executor")
-        self.close_process(p, bool(payload.get("successful", True)), payload.get("out", []),
-                           payload.get("errors", []), ex.executorid, ts=now_ns())
-        return self.db.get_process(p.processid).to_dict()
+        # Leader-stamped entry: the end time is fixed before the Raft log,
+        # so close replays identically on every replica.
+        op = {
+            "op": "close",
+            "opid": new_id(),
+            "processid": pid,
+            "executorid": ex.executorid,
+            "successful": bool(payload.get("successful", True)),
+            "out": payload.get("out", []),
+            "errors": payload.get("errors", []),
+            "ts": now_ns(),
+            "msgid": idempotency.current(),
+        }
+        if self._propose_op is not None:
+            # HA path: serialize close through the Raft log, then confirm
+            # this close won the apply's RUNNING + owner CAS by its
+            # leader-stamped end time.
+            self._propose_op(op)
+            closed = self.db.get_process(pid)
+            if closed.state not in (SUCCESSFUL, FAILED) or closed.endtime_ns != op["ts"]:
+                raise ConflictError("process is not assigned to this executor")
+        else:
+            self.apply_close(op)
+        return self.db.get_process(pid).to_dict()
+
+    def apply_close(self, op: dict) -> None:
+        """State-machine apply of a close op (also run by the Raft commit):
+        the wall clock arrives leader-stamped as ``op["ts"]``, and the
+        RUNNING + owner CAS of ``close_process`` turns a replay into a
+        ``ConflictError`` instead of a second mutation."""
+        p = self.db.get_process(op["processid"])
+        self.close_process(p, bool(op.get("successful", True)), op.get("out", []),
+                           op.get("errors", []), op["executorid"], ts=op["ts"])
 
     def close_process(self, p: Process, succeeded: bool, output: list[Any], errors: list[str],
                       expected_executorid: str, *, ts: int) -> None:
@@ -455,6 +588,9 @@ class ColoniesServer:
         stats.update(self.db.colony_stats(colony))
         stats["executors"] = len(self.db.list_executors(colony))
         stats["failsafe_errors"] = self.failsafe_errors
+        # Blob-plane counters over every live ShardedStorage of this
+        # process: the broker process of an HTTP deployment holds none.
+        stats["blob"] = blobstore.aggregate_stats()
         return stats
 
     # -- failsafe (paper §3.4) --------------------------------------------------
@@ -503,16 +639,19 @@ class ColoniesServer:
 
     def start_background(self, failsafe_interval: float = 0.25) -> None:
         """Run the failsafe scan and the extensions' ticks every
-        ``failsafe_interval`` seconds. The loop survives anything a scan
-        throws: failures are counted (``colonystats``' ``failsafe_errors``)
-        and the first is logged."""
+        ``failsafe_interval`` seconds, on the leader only. The loop survives
+        anything a scan throws: failures are counted (``colonystats``'
+        ``failsafe_errors``) and the first is logged."""
 
         def loop() -> None:
             while not self._stop.wait(failsafe_interval):
                 try:
-                    self.failsafe_scan()
+                    if self._is_leader():
+                        self.failsafe_scan()
                     for ext in self.extensions:
-                        ext.tick()
+                        tick = getattr(ext, "tick", None)
+                        if tick is not None and self._is_leader():
+                            tick()
                 except Exception:
                     if self.failsafe_errors == 0:
                         logging.getLogger(__name__).exception("failsafe loop error")
@@ -550,3 +689,13 @@ class ColoniesServer:
             with sig.cv:
                 sig.version += 1
                 sig.cv.notify_all()
+
+    # -- HA wiring ---------------------------------------------------------------
+    def set_leader_check(self, fn: Callable[[], bool]) -> None:
+        self._is_leader = fn
+
+    def set_op_proposer(self, fn: Callable[[dict], Any]) -> None:
+        """Route replicated ops (assign, close) through the Raft log. The
+        callable must block until the entry is committed and applied
+        locally (``ThreadedRaftCluster.propose_and_wait``)."""
+        self._propose_op = fn

@@ -1,9 +1,10 @@
 """Colonies client SDK (paper §4.1, Listings 3–5).
 
-A copy of the reference's ``repro/core/client.py`` without its
-client-side fault sites (``repro.runtime.faults``, the reference's test
-harness): a fault injected at the broker still reaches this client as a
-lost connection, which it retries as the reference does.
+A copy of the reference's ``repro/core/client.py``, with its client-side
+fault sites (``transport.send``, ``transport.recv``; see
+``runtime/faults.py``): with no plan installed each is one global read.
+A fault injected at the broker reaches this client as a lost connection,
+which it retries as the reference does.
 
 Transport-agnostic: ``InProcTransport`` calls a server object directly
 (deterministic tests), ``HttpTransport`` speaks the JSON envelope protocol
@@ -16,6 +17,7 @@ from __future__ import annotations
 import time
 from typing import Any
 
+from ..runtime import faults
 from . import idempotency
 from .errors import (
     AuthError,
@@ -62,16 +64,21 @@ class InProcTransport:
         return send_with_retry(lambda: self._send_once(envelope), self.retry)
 
     def _send_once(self, envelope: dict) -> dict:
+        ptype = envelope.get("payloadtype", "")
         last: dict = {"error": "no servers", "status": 500}
         order = list(range(len(self.servers)))
         order = order[self._preferred :] + order[: self._preferred]
         for idx in order:
             try:
+                action = faults.hit("transport.send", payloadtype=ptype)
                 resp = self.servers[idx].handle(envelope)
+                if action == "duplicate":  # at-least-once delivery: send twice
+                    resp = self.servers[idx].handle(envelope)
+                faults.hit("transport.recv", payloadtype=ptype)
             except ConnectionError as e:
-                # A server-side crash window (an injected fault is a
-                # ConnectionError) looks identical to a dead connection:
-                # retryable, reply lost.
+                # Injected transport faults and server-side crash windows
+                # (FaultInjected is a ConnectionError) look identical to a
+                # dead connection: retryable, reply lost.
                 last = {"error": f"transport: {e}", "status": 503}
                 continue
             if resp.get("status") == 421:  # not leader — try the next replica

@@ -3,9 +3,10 @@
 A copy of the client half of the reference's ``repro/core/fs.py``: the
 content-addressed storage backends (``MemoryStorage``, ``LocalStorage``)
 and ``CFSClient``, which pairs the broker's metadata RPCs with a
-storage's bytes. The broker's metadata handlers (``CFSExtension``) are
-not copied; neither is the reference's ``ShardedStorage``, but
-``CFSClient`` takes any object with ``scheme``, ``put`` and ``get``.
+storage's bytes. The broker's metadata handlers (``CFSExtension``) live
+in ``broker/cfs.py``; the sharded, self-healing store over these
+backends is ``core/blobstore.py``'s ``ShardedStorage``. ``CFSClient``
+takes any object with ``scheme``, ``put`` and ``get``.
 
 Invariants, as the paper argues:
   * **Immutability** — a file revision is never altered; re-adding the

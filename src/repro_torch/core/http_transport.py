@@ -1,8 +1,10 @@
 """HTTP transport (paper §3.3): signed JSON envelopes over POST /api.
 
 A copy of the client class ``HttpTransport`` of the reference's
-``repro/core/http_transport.py``, without its client-side fault sites,
-plus ``health()`` for the broker's ``GET /health``. The broker hangs
+``repro/core/http_transport.py``, with its client-side fault sites
+(``transport.send``, ``transport.recv``, and the ``"duplicate"`` action
+that delivers a request twice), plus ``health()`` for the broker's
+``GET /health``. The broker hangs
 ``assign`` requests (long-poll) until a process matches or the timer
 expires; executors always dial the broker, never the reverse, so they
 can live behind firewalls/NATs exactly as the paper argues. The server
@@ -18,6 +20,7 @@ import json
 import urllib.error
 import urllib.request
 
+from ..runtime import faults
 from .retry import RetryPolicy, send_with_retry
 
 
@@ -53,6 +56,7 @@ class HttpTransport:
 
     def _send_once(self, envelope: dict, timeout: float) -> dict:
         data = json.dumps(envelope).encode()
+        ptype = envelope.get("payloadtype", "")
         last: dict = {"error": "no endpoints", "status": 500}
         order = list(range(len(self.endpoints)))
         order = order[self._preferred :] + order[: self._preferred]
@@ -65,8 +69,13 @@ class HttpTransport:
                 method="POST",
             )
             try:
+                action = faults.hit("transport.send", payloadtype=ptype)
                 with urllib.request.urlopen(req, timeout=timeout) as resp:
                     body = json.loads(resp.read())
+                if action == "duplicate":  # at-least-once delivery: send twice
+                    with urllib.request.urlopen(req, timeout=timeout) as resp:
+                        body = json.loads(resp.read())
+                faults.hit("transport.recv", payloadtype=ptype)
             except urllib.error.HTTPError as e:
                 try:
                     body = json.loads(e.read())
@@ -78,9 +87,9 @@ class HttpTransport:
                 ConnectionError,
                 http.client.HTTPException,
             ) as e:
-                # Includes a broker that dies mid-request: it closes the
-                # socket without a reply, which surfaces here as
-                # RemoteDisconnected/ConnectionError.
+                # Includes injected transport faults and a broker that dies
+                # mid-request: it closes the socket without a reply, which
+                # surfaces here as RemoteDisconnected/ConnectionError.
                 last = {"error": f"transport: {e}", "status": 503}
                 continue
             if body.get("status") == 421:  # follower — try next replica

@@ -2,7 +2,9 @@
 
 A copy of the ``SPEC`` table and ``classify`` of the reference's
 ``repro/core/idempotency.py``: the client stamps a signed ``msgid`` into
-every KEYED envelope. The broker's per-request helpers are not copied.
+every KEYED envelope. Of the broker's per-request helpers, the
+request-msgid context (``set_current``/``reset_current``/``current``)
+is copied too: the HA broker stamps it onto its replicated ops.
 
 Retrying transports give at-least-once delivery; this spec is how the
 repo turns that into exactly-once *effect*. Every payloadtype in the
@@ -24,6 +26,8 @@ it by ``tests/test_torch_core_client.py``.
 """
 
 from __future__ import annotations
+
+import contextvars
 
 KEYED = "keyed"
 NATURAL = "natural"
@@ -74,3 +78,23 @@ SPEC: dict[str, str] = {
 def classify(payloadtype: str) -> str:
     """Unknown payloadtypes default to READ (no key stamped, no dedup)."""
     return SPEC.get(payloadtype, READ)
+
+
+# The msgid of the request currently being dispatched, so deep callees
+# (the close/assign Raft proposals in broker/server.py) can stamp it onto
+# the replicated op without threading a parameter through every layer.
+_request_msgid: contextvars.ContextVar[str] = contextvars.ContextVar(
+    "request_msgid", default=""
+)
+
+
+def set_current(msgid: str) -> contextvars.Token:
+    return _request_msgid.set(msgid or "")
+
+
+def reset_current(token: contextvars.Token) -> None:
+    _request_msgid.reset(token)
+
+
+def current() -> str:
+    return _request_msgid.get()

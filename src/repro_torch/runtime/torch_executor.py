@@ -36,7 +36,7 @@ from ..core.fs import CFSClient, Storage
 from ..core.retry import RetryPolicy
 from ..serve.batcher import make_batch_handler
 from . import train_loop
-from .train_loop import SimulatedCrash
+from .chaos import SimulatedCrash
 
 # Default blob-plane retry: generous enough to ride out one storage
 # shard dying mid-operation (a sharded store already tolerates R−1 shard

@@ -38,13 +38,7 @@ from ..models.spec import init_params, model_spec
 from ..serve.engine import ServeEngine
 from ..train.checkpoint import CheckpointManager
 from ..train.train_step import EvalStep, TrainStep, init_state, split_microbatches
-
-
-class SimulatedCrash(Exception):
-    """Raised inside a handler to emulate sudden executor death: the
-    process is not closed or failed; the broker's failsafe re-queues it."""
-
-    simulate_crash = True  # an executor re-raises instead of closing
+from .chaos import SimulatedCrash  # re-exported: its home is runtime.chaos
 
 
 def _smoke_cfg(kwargs: dict) -> ModelConfig:

@@ -250,7 +250,9 @@ def test_port_broker_refuses_unsigned_and_unknown_requests():
     env = {"payloadtype": "colonystats", "payload": "{}", "identity": "x"}
     assert srv.handle(env)["status"] == 403  # no signature
     client = Colonies(InProcTransport([srv]))
-    with pytest.raises(errors.ValidationError):  # cron is not part of this broker
+    with pytest.raises(errors.ValidationError):  # no handler for the payloadtype
+        client._rpc("nosuchrequest", {"colonyname": "dev"}, KEYS["colony"])
+    with pytest.raises(errors.NotFoundError):  # cron answers, as the reference's does
         client.get_crons("dev", KEYS["colony"])
     srv.stop()
 
