@@ -122,8 +122,9 @@ Phases, each of which exits non-zero when it fails:
      loss, grad norm and parameters at each case's bar in
      ``TRAIN_CROSS_CASES``, and exact launch counts on the card;
  11. ``[broker]``: the port's copy of the broker (``repro_torch.broker``)
-     in a process of its own (``BROKER_SOURCE``: signatures verified, no
-     torch, no jax, no module of ``repro``), reached
+     over its indexed ``MemoryDatabase``, in a process of its own
+     (``BROKER_SOURCE``: signatures verified, no torch, no jax, no module
+     of ``repro``), reached
      only over HTTP through the port's signed client; the colony, and the
      mean round trip of 20 signed ``colonystats``;
  12. ``[executors-continuum]``: both DAGs of the reference's continuum test
@@ -141,7 +142,20 @@ Phases, each of which exits non-zero when it fails:
      engine's seconds per batch and the share outside it (requests 5-8
      wait until batch 1 is on the engine; that wait is reported); this process
      then holds no module of ``repro`` or JAX;
- 14. ``[ha-broker]``, ``[ha-continuum]``, ``[ha-serve-full]``: the port's
+ 14. ``[durable-broker]``, ``[durable-continuum]``, ``[durable-serve-full]``:
+     the broker process over a ``SqliteDatabase`` file of 10,000
+     processes written through the port's ``SqliteDatabase`` (9,000
+     closed, 1,000 waiting for no executor), each phase SIGKILLing it and
+     starting it again on the same port over the file: signed
+     ``colonystats`` with the counts written, before and after a restart,
+     beside ``[broker]``'s round trip; ``[executors-continuum]``'s hand-off
+     with a kill while ``train`` runs (it closes successful once, 0
+     retries, its lease kept in the file) and one between the 2nd and 3rd
+     pack of the serving generator (it fires once, with 4; tokens equal
+     to ``generate``; B1 as the hand-off's); ``[executors-serve-full]``
+     with a kill between its two batches (tokens equal, B1 64); each
+     restart's seconds from the kill to the new process's port;
+ 15. ``[ha-broker]``, ``[ha-continuum]``, ``[ha-serve-full]``: the port's
      replicated broker (``HA_BROKER_SOURCE``: three replicas behind Raft,
      one HTTP server each, the digest check armed, no torch, no jax, no
      module of ``repro``) and the mean signed round trip a replica; DAG 1
@@ -156,7 +170,7 @@ Phases, each of which exits non-zero when it fails:
      drain ``HA_BACKLOG`` echo processes (tokens equal to generate, 32
      flash attention launches a prefill, each process ended once; the
      failover's seconds and each batch beside ``[executors-serve-full]``'s);
- 15. ``[launch]``: the launchers' own CLIs through the broker and the
+ 16. ``[launch]``: the launchers' own CLIs through the broker and the
      executors: ``launch.serve`` of full-width stablelm-3b (float32) in
      this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
      attention launches a prefill and none of the scans, tokens equal to
@@ -172,7 +186,7 @@ Phases, each of which exits non-zero when it fails:
      (float32, AdamW, 2 steps, its whole state checkpointed through CFS and
      restored by ``evaluate``), held the same way to the direct handlers,
      each run in a child process of its own;
- 16. each kernel, its plain twin and, where there is one, a PyTorch call
+ 17. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
      mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
@@ -526,7 +540,12 @@ def device_ms(fn, iters: int, repeats: bool = False) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(6):  # the profiler now and then records nothing: ask again
+    # The profiler now and then records nothing, or loses launches and then
+    # often part of the time of those it kept (the Mamba scan at T=293 with
+    # bf16 x: five attempts of ``timed``, each beside a profile that had
+    # lost launches, read 0.056-0.142 ms a call against events of 0.119):
+    # ask again, and keep a partial profile only from the third try on.
+    for attempt in range(6):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -534,7 +553,7 @@ def device_ms(fn, iters: int, repeats: bool = False) -> float:
         events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
         calls = max((e.count for e in events), default=0)
-        if calls:
+        if calls >= iters or (calls and attempt >= 2):
             break
     check(0 < calls and (repeats or calls <= iters),
           f"the profiler recorded {calls} launches of {iters} calls")
@@ -2677,25 +2696,35 @@ def reference_modules(modules) -> list[str]:
 # the port's stdlib copy, ``repro_torch.broker``, which uses torch for
 # nothing: the child registers the ``repro_torch`` package by its path
 # without running its ``__init__`` (which warms torch's CPU ``exp``), so it
-# loads neither torch nor any module of the reference. It verifies every
-# signature (and shows that it refuses an unsigned request), runs the failsafe scanner and the generators' ticks every
-# 0.1 s, prints its port, then what it imported, and waits to be killed.
+# loads neither torch nor any module of the reference. Its arguments: the
+# server id, the package's path, the database (``memory``, the indexed
+# ``MemoryDatabase``, or the path of a ``SqliteDatabase`` file, opened
+# as it is) and the port (0: a free one). It verifies every signature
+# (and shows that it refuses an unsigned request), runs the failsafe
+# scanner and the generators' ticks every 0.1 s, prints its port, then
+# what it imported and the seconds it took to open the database, and
+# waits to be killed.
 BROKER_SOURCE = """\
 import json, sys, threading, time, types
 t0 = time.perf_counter()
 pkg = types.ModuleType("repro_torch")
 pkg.__path__ = [sys.argv[2]]
 sys.modules["repro_torch"] = pkg
-from repro_torch.broker import ColoniesHttpServer, standalone_server
-srv = standalone_server(sys.argv[1])
-http = ColoniesHttpServer(srv)
+from repro_torch.broker import (ColoniesHttpServer, MemoryDatabase, SqliteDatabase,
+                                standalone_server)
+t_open = time.perf_counter()
+db = MemoryDatabase() if sys.argv[3] == "memory" else SqliteDatabase(sys.argv[3])
+open_s = time.perf_counter() - t_open
+srv = standalone_server(sys.argv[1], db)
+http = ColoniesHttpServer(srv, port=int(sys.argv[4]))
 http.start()
 srv.start_background(failsafe_interval=0.1)
 print(http.port, flush=True)
 tops = {n.split(".")[0] for n in sys.modules}
 unsigned = srv.handle({"payloadtype": "colonystats", "payload": "{}", "identity": sys.argv[1]})
 print(json.dumps({"refuses_unsigned": unsigned.get("status") == 403,
-                  "start_s": time.perf_counter() - t0,
+                  "start_s": time.perf_counter() - t0, "db": type(db).__name__,
+                  "open_s": open_s,
                   "torch_or_jax": sorted(tops & {"torch", "jax", "jaxlib"}),
                   "reference": sorted(tops & {"repro"})}), flush=True)
 threading.Event().wait()
@@ -2710,31 +2739,57 @@ EXEC_EVAL_BATCHES = 2  # evaluate's default eval_batches
 
 
 class Broker:
-    """The broker process (``BROKER_SOURCE``) and the port's signed HTTP
-    client to it, with a server key and a colony key of this run."""
+    """The broker process (``BROKER_SOURCE``) over ``db`` (``"memory"`` or a
+    sqlite file's path) and the port's signed HTTP client to it, with a
+    server key and a colony key of this run. ``kill()`` ends the process
+    with SIGKILL; ``restart()`` starts a new one on the same port over the
+    same database. ``retry`` is the client transport's ``RetryPolicy``
+    (None: a lost connection surfaces at once)."""
 
-    def __init__(self) -> None:
+    def __init__(self, db: str = "memory", retry=None) -> None:
         from repro_torch.core.client import Colonies
         from repro_torch.core.crypto import Crypto
         from repro_torch.core.http_transport import HttpTransport
 
         self.server_prv, self.colony_prv = Crypto.prvkey(), Crypto.prvkey()
+        self.db, self.port, self.proc, self.killed_at = db, 0, None, None
+        self._start()
+        self.transport = HttpTransport("127.0.0.1", self.port, retry=retry)
+        self.client = Colonies(self.transport)
+
+    def _start(self) -> None:
+        from repro_torch.core.crypto import Crypto
+
         t0 = time.perf_counter()
         root = Path(__file__).resolve().parent
         self.proc = subprocess.Popen(
             [sys.executable, "-c", BROKER_SOURCE, Crypto.id(self.server_prv),
-             str(root / "src" / "repro_torch")], cwd=root, stdout=subprocess.PIPE, text=True)
+             str(root / "src" / "repro_torch"), self.db, str(self.port)],
+            cwd=root, stdout=subprocess.PIPE, text=True)
         try:
             port = self.proc.stdout.readline().strip()
+            self.up_at = time.perf_counter()
             info = self.proc.stdout.readline().strip()
             self.start_s = time.perf_counter() - t0
             check(port.isdigit() and bool(info), f"the broker process printed {port!r}, {info!r}")
-            self.info = json.loads(info)
+            check(self.port in (0, int(port)), f"the broker came back on {port}, not {self.port}")
+            self.port, self.info = int(port), json.loads(info)
         except BaseException:
             self.close()
             raise
-        self.transport = HttpTransport("127.0.0.1", int(port))
-        self.client = Colonies(self.transport)
+
+    def kill(self) -> None:
+        """SIGKILL, no terminate: the process gets no chance to flush."""
+        self.killed_at = time.perf_counter()
+        self.proc.kill()
+        self.proc.wait(timeout=10)
+        self.proc.stdout.close()
+
+    def restart(self) -> float:
+        """A new process on the same port over the same database; returns
+        the seconds from the kill to its printed port."""
+        self._start()
+        return self.up_at - self.killed_at
 
     def alive(self) -> bool:
         return self.proc.poll() is None
@@ -2747,7 +2802,19 @@ class Broker:
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait(timeout=10)
-        self.proc.stdout.close()
+        if not self.proc.stdout.closed:
+            self.proc.stdout.close()
+
+
+def signed_stats(broker: Broker, n: int) -> tuple[dict, list[float]]:
+    """``n`` signed colonystats of the colony: the last reply and each
+    round trip's seconds."""
+    seconds = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        stats = broker.client.stats(COLONY, broker.colony_prv)
+        seconds.append(time.perf_counter() - t0)
+    return stats, seconds
 
 
 def phase_broker(broker: Broker) -> dict:
@@ -2765,11 +2832,7 @@ def phase_broker(broker: Broker) -> dict:
     health = broker.transport.health()
     check(health.get("status") == "ok", f"/health answered {health}")
     broker.client.add_colony(COLONY, Crypto.id(broker.colony_prv), broker.server_prv)
-    seconds = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        stats = broker.client.stats(COLONY, broker.colony_prv)
-        seconds.append(time.perf_counter() - t0)
+    stats, seconds = signed_stats(broker, 20)
     check(stats["executors"] == 0 and stats["waiting"] == 0, f"colonystats {stats}")
     t0 = time.perf_counter()
     for _ in range(20):
@@ -3046,6 +3109,280 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
           f"(signed RPCs, CFS, generator wait) {stats['outside_engine_share']:.4f} of the wall "
           f"time, {stats['outside_engine_share_less_held_back']:.4f} without the "
           f"{wait_s:.3f} s that requests 5-8 were held back; max_memory_allocated {peak} bytes")
+    del ex, engine
+    torch.cuda.empty_cache()
+    stats["seconds"] = time.perf_counter() - t_phase
+    print(f"{tag} {stats['seconds']:.1f} s")
+    return counts, stats
+
+
+# [durable-*]: the broker over a SqliteDatabase file, SIGKILLed and started
+# again over it. The file holds the 10k processes of
+# benchmarks/bench_broker.py's colonystats and failsafe probes: 9,000
+# closed, 800 waiting for an executor type nobody runs, 200 waiting for an
+# executor name nobody has (of the trainers' type, so every assign walks
+# past them). It lives in the git-ignored build/.
+DURABLE_DB = Path(__file__).resolve().parent / "build" / "durable" / "colonies.db"
+DURABLE_CLOSED = {"successful": 8_100, "failed": 900}
+DURABLE_WAITING = {"type nobody runs": 800, "name nobody has": 200}
+# The clients of a broker that restarts retry a lost connection for up to
+# 30 s, every 0.05-0.5 s. RetryPolicy's default (8 attempts) gives up
+# after its 7 backoffs, which decorrelated jitter can draw all near the
+# 0.02-s base: under a second in all, shorter than a restart may take.
+DURABLE_RETRY_KW = dict(base_s=0.05, cap_s=0.5, deadline_s=30.0, budget=64, seed=5)
+
+
+def durable_file() -> tuple[dict, float]:
+    """Writes the processes of colony ``h100`` into ``DURABLE_DB`` through
+    the port's ``SqliteDatabase`` (``add_process``, then ``update_process``
+    for the closed ones); returns the per-state counts written and the
+    seconds it took."""
+    from repro_torch.broker import SqliteDatabase
+    from repro_torch.core.process import Process, now_ns
+    from repro_torch.core.spec import FunctionSpec
+
+    DURABLE_DB.parent.mkdir(parents=True, exist_ok=True)
+    for suffix in ("", "-wal", "-shm"):
+        Path(str(DURABLE_DB) + suffix).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    db = SqliteDatabase(str(DURABLE_DB))
+
+    def spec(etype: str, names: list[str] | None = None) -> FunctionSpec:
+        return FunctionSpec.from_dict({
+            "conditions": {"colonyname": COLONY, "executortype": etype,
+                           "executornames": names or []},
+            "funcname": "archive", "args": ["x" * 64], "maxexectime": 600})
+
+    closed = [state for state, n in DURABLE_CLOSED.items() for _ in range(n)]
+    for state in closed:
+        p = Process.create(spec("h100-pod"))
+        db.add_process(p)
+        p.state, p.endtime_ns = state, now_ns()
+        db.update_process(p)
+    for _ in range(DURABLE_WAITING["type nobody runs"]):
+        db.add_process(Process.create(spec("cpu-archive")))
+    for _ in range(DURABLE_WAITING["name nobody has"]):
+        db.add_process(Process.create(spec("h100-pod", ["h100-offline"])))
+    want = dict(DURABLE_CLOSED, waiting=sum(DURABLE_WAITING.values()))
+    check(db.colony_stats(COLONY) == want, f"the file's counts {db.colony_stats(COLONY)}")
+    del db  # its connection closes with it
+    return want, time.perf_counter() - t0
+
+
+def phase_durable_broker(broker: Broker, want: dict, written_s: float, alone: dict) -> dict:
+    """The broker process over the 10k-process file: what it imported, the
+    seconds it took to open the file; the colony, and 20 signed colonystats
+    with the counts written; then SIGKILL, a restart over the file, and the
+    same counts from the new process."""
+    from repro_torch.core.crypto import Crypto
+
+    tag = "[durable-broker]"
+    n = sum(want.values())
+    print(f"{tag} {n} processes written to {DURABLE_DB.name} through SqliteDatabase in "
+          f"{written_s:.3f} s ({DURABLE_DB.stat().st_size} bytes, and the WAL's)")
+    print(f"{tag} broker process {broker.proc.pid} on port {broker.port}: {json.dumps(broker.info)}; "
+          f"up after {broker.start_s:.3f} s")
+    check(broker.info["db"] == "SqliteDatabase", f"the broker opened {broker.info['db']}")
+    check(broker.info["refuses_unsigned"] is True, "the broker took an unsigned request")
+    check(broker.info["torch_or_jax"] == [] and broker.info["reference"] == [],
+          f"the broker process imported {broker.info['torch_or_jax'] + broker.info['reference']}")
+
+    def counts(stats: dict) -> dict:
+        return {k: stats[k] for k in want} | {"running": stats["running"]}
+
+    broker.client.add_colony(COLONY, Crypto.id(broker.colony_prv), broker.server_prv)
+    stats, seconds = signed_stats(broker, 20)
+    check(counts(stats) == dict(want, running=0), f"colonystats {stats}, written {want}")
+    rtt = sum(seconds) / len(seconds)
+    open_s = broker.info["open_s"]
+    broker.kill()
+    restart_s = broker.restart()
+    check(broker.info["torch_or_jax"] == [] and broker.info["reference"] == [],
+          f"the restarted broker imported {broker.info['torch_or_jax'] + broker.info['reference']}")
+    after, seconds_after = signed_stats(broker, 20)
+    check(counts(after) == counts(stats), f"colonystats after the restart {after}, before {stats}")
+    rtt_after = sum(seconds_after) / len(seconds_after)
+    print(f"{tag} 20 signed colonystats: {counts(stats)}; mean round trip {rtt * 1e3:.3f} ms (min "
+          f"{min(seconds) * 1e3:.3f}, max {max(seconds) * 1e3:.3f}), [broker]'s over an empty "
+          f"MemoryDatabase {alone['rpc_mean_s'] * 1e3:.3f} ms in this run; the file opened in "
+          f"{open_s * 1e3:.3f} ms")
+    print(f"{tag} SIGKILL and restart: port {broker.port} again after {restart_s:.3f} s from the "
+          f"kill (the file opened in {broker.info['open_s'] * 1e3:.3f} ms); the same counts; mean "
+          f"round trip {rtt_after * 1e3:.3f} ms")
+    return {"written_s": written_s, "processes": n, "open_s": open_s, "start_s": broker.start_s,
+            "rpc_mean_s": rtt, "rpc_min_s": min(seconds), "rpc_max_s": max(seconds),
+            "restart_s": restart_s, "reopen_s": broker.info["open_s"],
+            "rpc_mean_after_restart_s": rtt_after}
+
+
+def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
+    """``[executors-continuum]``'s hand-off over the 10k-process file: run
+    "durable" trains 4 steps with 4 checkpoints while the broker is
+    SIGKILLed and restarted once its first checkpoint is listed; train
+    closes successful once, with 0 retries. A ServeExecutor restores the
+    run from CFS and serves 4 requests through a generator of queuesize 4;
+    the broker is killed and restarted again after the 2nd pack's reply
+    and before the 3rd pack: the generator fires once, with 4 packs, and
+    the tokens equal the engine's own generate."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.fs import CFSClient, MemoryStorage
+    from repro_torch.core.spec import FunctionSpec
+    from repro_torch.runtime import torch_executor as tx
+    from repro_torch.serve.batcher import InferenceClient, pad_prompts
+
+    tag = "[durable-continuum]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    layers = get_config("stablelm-3b", "smoke").num_layers
+    client, prv = broker.client, broker.colony_prv
+    storage = MemoryStorage()
+    kw = dict(colony_prvkey=prv, device="cuda")
+    running, restart_s = [], []
+
+    def start(ex):
+        running.append(ex)
+        ex.start(poll_timeout=0.2)
+        return ex
+
+    try:
+        zero_launches(mods)
+        trainer = start(tx.TrainerExecutor(client, COLONY, "h100-durable", "h100-pod", storage,
+                                           **kw))
+        p = client.submit(FunctionSpec.from_dict({
+            "conditions": {"colonyname": COLONY, "executortype": "h100-pod"},
+            "funcname": "train", "kwargs": dict(EXEC_TRAIN_KW, run="durable"),
+            "maxexectime": 600}), prv)
+        t0 = time.perf_counter()
+        while not any(f["name"] == "latest.json"
+                      for f in client.get_files(COLONY, "/checkpoints/durable", prv)):
+            check(time.perf_counter() - t0 < 600, "no checkpoint of run durable was listed")
+            time.sleep(0.05)
+        before = client.get_process(p["processid"], prv)
+        broker.kill()
+        restart_s.append(broker.restart())
+        after = client.get_process(p["processid"], prv)
+        print(f"{tag} the first checkpoint listed {time.perf_counter() - t0:.3f} s after the "
+              f"submit; SIGKILL and restart in {restart_s[0]:.3f} s; train is {after['state']} "
+              f"on {after['assignedexecutorid'][:8]} with its deadline "
+              f"{'kept' if after['deadline'] == before['deadline'] else 'changed'}")
+        check(after["state"] == "running" and after["deadline"] == before["deadline"] > 0
+              and after["assignedexecutorid"] == before["assignedexecutorid"],
+              f"train after the restart: {after['state']}, deadline {after['deadline']} "
+              f"(before {before['deadline']})")
+        done = client.wait(p["processid"], prv, timeout=600)
+        trainer.stop()
+        print(f"{tag} train (4 steps, 4 checkpoints): {done['state']}, retries {done['retries']}, "
+              f"{done['out'] or done['errors']}; the trainer processed {trainer.processed}, "
+              f"failed {trainer.failed}")
+        check(done["state"] == "successful" and done["retries"] == 0
+              and done["out"][0]["final_step"] == 3 and trainer.processed == 1
+              and trainer.failed == 0, f"train: {done['state']} {done['errors'] or done['out']}")
+        server = start(tx.ServeExecutor(client, COLONY, "h100-serve-durable", "h100-serve",
+                                        storage, arch="stablelm-3b", max_len=64, run="durable",
+                                        **kw))
+        g = client.add_generator({"colonyname": COLONY, "name": "durable-gen", "queuesize": 4,
+                                  "timeout": 30.0, "workflow": serve_workflow()}, prv)
+        infc = InferenceClient(client, CFSClient(client, storage, prv), COLONY, g["generatorid"],
+                               prv)
+        rng = np.random.default_rng(5)
+        prompts = [rng.integers(0, 256, n).tolist() for n in (5, 12, 9, 16)]
+        rids = [infc.submit(pr, max_new_tokens=8) for pr in prompts[:2]]
+        broker.kill()  # two packs stored, their replies in hand: none in flight
+        restart_s.append(broker.restart())
+        rids += [infc.submit(pr, max_new_tokens=8) for pr in prompts[2:]]
+        served = [infc.wait(r, timeout=120) for r in rids]
+        server.stop()
+        launches = {name: mod.launches for name, mod in mods.items()}
+        gen = [e for e in client.get_generators(COLONY, prv)
+               if e["generatorid"] == g["generatorid"]][0]
+        print(f"{tag} SIGKILL and restart between the 2nd and the 3rd pack in {restart_s[1]:.3f} "
+              f"s; the generator ran {gen['runs']} time(s), {gen['pending']} pending; engine "
+              f"{server.engine.stats}")
+        check(gen["runs"] == 1 and gen["pending"] == 0 and server.engine.stats["batches"] == 1
+              and server.engine.stats["requests"] == 4 and server.processed == 1,
+              f"generator {gen}, engine {server.engine.stats}, processed {server.processed}")
+        direct = server.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
+                                        max_new_tokens=8).tolist()
+        print(f"{tag} served from the restored checkpoint: {served[0]} ...; identical to the "
+              f"engine's own generate: {served == direct}")
+        check(served == direct, "tokens served through the generator differ from generate's")
+        want = {name: EXEC_TRAIN_KW["steps"] * 2 * layers + layers
+                if name == "flash_attention" else 0 for name in mods}
+        print(f"{tag} launches {launches} (want {want}, [executors-continuum]'s hand-off)")
+        check(launches == want, f"launches {launches}, want {want}")
+        check(broker.alive(), "the broker process died")
+    finally:
+        for ex in running:
+            ex.stop()
+    seconds = time.perf_counter() - t_phase
+    print(f"{tag} {seconds:.1f} s")
+    return launches, {"restart_s": restart_s, "train_attempt_s":
+                      (done["endtime"] - done["starttime"]) / 1e9, "seconds": seconds}
+
+
+def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
+    """``[executors-serve-full]`` behind the file's broker: full-width
+    stablelm-3b (float32) in a ServeExecutor behind a generator of
+    queuesize 4, 8 signed requests over HTTP in 2 batches, the broker
+    SIGKILLed and restarted between them; tokens equal to the engine's own
+    generate on each batch, 32 flash attention launches a prefill."""
+    from repro_torch.core.fs import CFSClient, MemoryStorage
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.runtime import torch_executor as tx
+    from repro_torch.serve.batcher import InferenceClient, pad_prompts
+
+    tag = "[durable-serve-full]"
+    t_phase = time.perf_counter()
+    mods = kernel_modules()
+    client, prv = broker.client, broker.colony_prv
+    storage = MemoryStorage()
+    ex = tx.ServeExecutor(client, COLONY, "h100-serve-durable-full", "h100-serve", storage,
+                          colony_prvkey=prv, arch="stablelm-3b", variant="full",
+                          max_len=max(PROMPT_LENS) + NEW_TOKENS, device="cuda")
+    engine, cfg = ex.engine, ex.engine.cfg
+    check(cfg.num_layers == 32 and cfg.param_dtype == "float32",
+          f"{cfg.num_layers} layers, {cfg.param_dtype}")
+    try:
+        ex.start(poll_timeout=0.2)
+        g = client.add_generator({"colonyname": COLONY, "name": "durable-serve-full",
+                                  "queuesize": 4, "timeout": 60.0,
+                                  "workflow": serve_workflow()}, prv)
+        infc = InferenceClient(client, CFSClient(client, storage, prv), COLONY, g["generatorid"],
+                               prv)
+        requests = make_requests(PROMPT_LENS, cfg.vocab_size, NEW_TOKENS, seed=1)
+        batches = [requests[:4], requests[4:]]
+        zero_launches(mods)
+        t0 = time.perf_counter()
+        served, batch_s = [], []
+        for i, batch in enumerate(batches):
+            if i:
+                broker.kill()
+                restart_s = broker.restart()
+            t = time.perf_counter()
+            rids = [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in batch]
+            served.append([infc.wait(rid, timeout=600) for rid in rids])
+            batch_s.append(time.perf_counter() - t)
+        wall_s = time.perf_counter() - t0
+        counts = {name: mod.launches for name, mod in mods.items()}
+        check(broker.alive(), "the broker process died")
+    finally:
+        ex.stop()
+    want = {name: 32 * 2 if name == "flash_attention" else 0 for name in mods}
+    print(f"{tag} 8 requests in 2 batches, SIGKILL and restart between them in {restart_s:.3f} "
+          f"s; engine stats {engine.stats}; launches {counts} (want {want})")
+    check(engine.stats["batches"] == 2 and engine.stats["requests"] == 8 and ex.processed == 2,
+          f"engine stats {engine.stats}, processed {ex.processed}")
+    check(counts == want, f"launches {counts}, want {want}")
+    for batch, got in zip(batches, served):
+        direct = engine.generate(pad_prompts(batch), max_new_tokens=NEW_TOKENS).tolist()
+        check(got == direct, "served tokens differ from the engine's own generate on the batch")
+    n_tok = len(requests) * NEW_TOKENS
+    stats = {"wall_s": wall_s, "tokens_per_s": n_tok / wall_s, "batch_s": batch_s,
+             "restart_s": restart_s}
+    print(f"{tag} served tokens identical to generate on each batch; first submit to last "
+          f"result {wall_s:.3f} s, {n_tok / wall_s:.1f} tokens/s, the restart included (alone, "
+          f"[executors-serve-full]: {alone['wall_s']:.3f} s, {alone['tokens_per_s']:.1f}); each "
+          f"batch from its first submit to its last result {[round(x, 3) for x in batch_s]} s")
     del ex, engine
     torch.cuda.empty_cache()
     stats["seconds"] = time.perf_counter() - t_phase
@@ -3938,6 +4275,19 @@ def main() -> int:
     finally:
         broker.close()
     mark("broker and executors")
+    from repro_torch.core.retry import RetryPolicy
+
+    written, written_s = durable_file()
+    durable = Broker(str(DURABLE_DB), RetryPolicy(**DURABLE_RETRY_KW))
+    try:
+        durable_stats = phase_durable_broker(durable, written, written_s, broker_stats)
+        durable_cont_counts, durable_cont_stats = phase_durable_continuum(durable)
+        durable_serve_counts, durable_serve_stats = phase_durable_serve_full(durable,
+                                                                             serve_exec_stats)
+        check(durable.alive(), "the broker process died")
+    finally:
+        durable.close()
+    mark("durable")
     ha = HABroker()
     try:
         ha_broker_stats = phase_ha_broker(ha)
@@ -3962,6 +4312,8 @@ def main() -> int:
              "stablelm-3b continuum": continuum_counts,
              "stablelm-3b executors-continuum": executor_counts,
              "stablelm-3b executors-serve-full": serve_exec_counts,
+             "stablelm-3b durable-continuum": durable_cont_counts,
+             "stablelm-3b durable-serve-full": durable_serve_counts,
              "stablelm-3b ha-continuum": ha_cont_counts,
              "stablelm-3b ha-serve-full": ha_serve_counts,
              "stablelm-3b launch-serve": launch_serve_counts,
@@ -4005,6 +4357,8 @@ def main() -> int:
     print(f"[done] train-graph {json.dumps(graph_stats)}")
     print(f"[done] broker {json.dumps(broker_stats)}; executors-continuum "
           f"{json.dumps(executor_stats)}; executors-serve-full {json.dumps(serve_exec_stats)}")
+    print(f"[done] durable-broker {json.dumps(durable_stats)}; durable-continuum "
+          f"{json.dumps(durable_cont_stats)}; durable-serve-full {json.dumps(durable_serve_stats)}")
     print(f"[done] ha-broker {json.dumps(ha_broker_stats)}; ha-continuum "
           f"{json.dumps(ha_cont_stats)}; ha-serve-full {json.dumps(ha_serve_stats)}")
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "

@@ -2,7 +2,8 @@
 (``server``, ``database``, ``generator``, ``cron``, ``raft``,
 ``cluster``, the metadata half of ``fs``, the server half of
 ``http_transport``) and the runtime half of its
-``analysis.statehash``: an in-memory database, one replica
+``analysis.statehash``: the indexed in-memory database or the sqlite
+one, a file that outlives the broker process (§3.4.3), under one replica
 (``standalone_server``) or several behind Raft (``HAColonyCluster``,
 paper §3.4.1, Fig. 3).
 
@@ -12,10 +13,15 @@ standard library and the stdlib modules ``repro_torch.core`` and
 ``repro_torch.runtime.faults``, never torch, so that ``chip_smoke.py``
 can run it as a separate process beside the executors on the card::
 
-    srv = standalone_server(server_id)
+    srv = standalone_server(server_id)  # or (server_id, SqliteDatabase(path))
     http = ColoniesHttpServer(srv)
     http.start()
     srv.start_background(failsafe_interval=0.1)
+
+A broker over a ``SqliteDatabase`` file can be killed at any moment and
+started again over the same file: the queue, the leases, CFS metadata,
+cron and generator tables, pending packs and the dedup records are rows
+of that file, and no session state lives in memory.
 
 or, replicated::
 
@@ -27,18 +33,21 @@ or, replicated::
 from .cfs import CFSExtension
 from .cluster import HAColonyCluster
 from .cron import CronExtension
+from .database import Database, MemoryDatabase, SqliteDatabase
 from .generator import GeneratorExtension
 from .http_server import ColoniesHttpServer
 from .server import ColoniesServer
 
 
-def standalone_server(serverid: str) -> ColoniesServer:
-    """One broker with cron, generators and CFS metadata wired."""
-    srv = ColoniesServer(serverid)
+def standalone_server(serverid: str, db: Database | None = None) -> ColoniesServer:
+    """One broker with cron, generators and CFS metadata wired, over
+    ``db`` (a fresh ``MemoryDatabase`` when None)."""
+    srv = ColoniesServer(serverid, db)
     CronExtension(srv)
     GeneratorExtension(srv)
     CFSExtension(srv)
     return srv
 
 
-__all__ = ["ColoniesHttpServer", "ColoniesServer", "HAColonyCluster", "standalone_server"]
+__all__ = ["ColoniesHttpServer", "ColoniesServer", "Database", "HAColonyCluster",
+           "MemoryDatabase", "SqliteDatabase", "standalone_server"]

@@ -10,9 +10,10 @@ across leader failovers; the apply is idempotent so replay is safe.
 Cron/generator scanning and the failsafe run on the leader only.
 
 A copy of the reference's ``repro/core/cluster.py``, stdlib only, over
-the port's broker: one shared ``MemoryDatabase`` and one
-``ColoniesServer`` per replica. Every replica verifies every signature
-(the port's broker has no unverified path).
+the port's broker: one shared database (``db``, a ``MemoryDatabase`` by
+default, or a ``SqliteDatabase``) and one ``ColoniesServer`` per replica.
+Every replica verifies every signature (the port's broker has no
+unverified path).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from ..core.errors import ConflictError, NotFoundError
 from . import statehash
 from .cfs import CFSExtension
 from .cron import CronExtension
-from .database import MemoryDatabase
+from .database import Database, MemoryDatabase
 from .generator import GeneratorExtension
 from .raft import ThreadedRaftCluster
 from .server import ColoniesServer
@@ -68,11 +69,12 @@ class HAColonyCluster:
         self,
         serverid: str,
         replicas: int = 3,
+        db: Database | None = None,
         seed: int = 0,
     ) -> None:
         # One shared database: its per-colony locks (db.colony_lock) are the
         # serialization point for assign/close/failsafe across ALL replicas.
-        self.db = MemoryDatabase()
+        self.db = db if db is not None else MemoryDatabase()
         self.servers: list[ColoniesServer] = []
         self._applied_lock = threading.RLock()
         # Bounded replay-dedup window; the per-op CAS (see REPLICATED_OPS)

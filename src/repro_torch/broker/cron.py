@@ -187,9 +187,9 @@ class CronExtension:
     def tick(self) -> int:
         """Fire everything past deadline via the deadline index. Leader-only.
 
-        ``cron_due`` hands back only the entries past their deadline (the
-        reference's databases read a deadline index; the port's trimmed
-        ``MemoryDatabase`` scans its cron table).
+        ``cron_due`` hands back only the entries past their deadline, read
+        from a deadline index (a heap in memory, ``idx_crons_deadline`` in
+        sqlite).
         """
         ts = now_ns()
         fired = 0

@@ -6,7 +6,9 @@ server's background tick fires a generator once ``queuesize`` data have
 accumulated, or ``timeout`` seconds after the first pending one: it
 drains the bucket and submits the template workflow with the packed data
 in its root nodes' ``packed_args``. Serving batches requests this way
-(``serve/batcher.py``).
+(``serve/batcher.py``). The pending data are the database's list bucket
+``PACKS_TABLE``, the reference's table name, so a database file written
+by either package's broker keeps its pending packs in the other's.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from typing import Any, Callable
 from ..core.errors import NotFoundError, ValidationError
 from ..core.process import now_ns
 from ..core.spec import WorkflowSpec
+
+PACKS_TABLE = "generator_packs"
 
 
 class GeneratorExtension:
@@ -64,7 +68,7 @@ class GeneratorExtension:
     def _h_get_generators(self, identity: str, payload: dict) -> list[dict]:
         colony = payload["colonyname"]
         self.server._require_member(identity, colony)
-        return [dict(e, pending=self.db.pack_len(e["generatorid"]))
+        return [dict(e, pending=self.db.kv_len(PACKS_TABLE, e["generatorid"]))
                 for e in self.db.generator_list(colony)]
 
     def _h_remove_generator(self, identity: str, payload: dict) -> dict:
@@ -74,6 +78,7 @@ class GeneratorExtension:
             raise NotFoundError("generator not found")
         self.server._require_member(identity, entry["colonyname"])
         self.db.generator_del(gid)
+        self.db.kv_take_all(PACKS_TABLE, gid)
         return {"generatorid": gid, "removed": True}
 
     def _h_pack(self, identity: str, payload: dict) -> dict:
@@ -82,7 +87,7 @@ class GeneratorExtension:
         if entry is None:
             raise NotFoundError("generator not found")
         self.server._require_member(identity, entry["colonyname"])
-        n = self.db.pack_append(gid, {"arg": payload.get("arg"), "ts": now_ns()})
+        n = self.db.kv_append(PACKS_TABLE, gid, {"arg": payload.get("arg"), "ts": now_ns()})
         if entry.get("firstpack", 0) == 0:
             entry["firstpack"] = now_ns()
             self.db.generator_put(entry)
@@ -92,7 +97,7 @@ class GeneratorExtension:
         ts = now_ns()
         fired = 0
         for entry in self.db.generator_all():
-            pending = self.db.pack_len(entry["generatorid"])
+            pending = self.db.kv_len(PACKS_TABLE, entry["generatorid"])
             if pending == 0:
                 continue
             timed_out = (entry.get("timeout", 0) > 0 and entry.get("firstpack", 0) > 0
@@ -103,7 +108,7 @@ class GeneratorExtension:
         return fired
 
     def _fire(self, entry: dict) -> None:
-        packs = self.db.pack_take_all(entry["generatorid"])
+        packs = self.db.kv_take_all(PACKS_TABLE, entry["generatorid"])
         if not packs:
             return
         args = [p["arg"] for p in packs]

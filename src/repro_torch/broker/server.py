@@ -58,7 +58,7 @@ from ..core.process import (
 from ..core.security import canonical
 from ..core.spec import FunctionSpec, WorkflowSpec
 from ..runtime import faults
-from .database import Colony, Executor, MemoryDatabase
+from .database import Colony, Database, Executor, MemoryDatabase
 
 
 def open_envelope(env: dict) -> tuple[str, str, dict[str, Any]]:
@@ -119,7 +119,7 @@ class ColoniesServer:
     # rely purely on queue notifications.
     HA_LEADER_RECHECK_S = 0.5
 
-    def __init__(self, serverid: str, db: MemoryDatabase | None = None,
+    def __init__(self, serverid: str, db: Database | None = None,
                  name: str = "colonies-0") -> None:
         self.name = name
         self.serverid = serverid
@@ -196,9 +196,11 @@ class ColoniesServer:
                 result = handler(identity, payload)
             finally:
                 idempotency.reset_current(token)
-            # successes only: a handler raises before it mutates anything
+            # successes only: a handler raises before it mutates anything;
+            # the colony bounds the record's table share
             if dedup_key:
-                self.db.dedup_put(dedup_key, now_ns(), result)
+                self.db.dedup_put(dedup_key, idempotency.reply_colony(ptype, payload, result),
+                                  now_ns(), result)
             # The crash-after-commit-before-reply window: effect and dedup
             # record are stored, the reply is lost.
             faults.hit("server.post_commit", payloadtype=ptype)
@@ -532,6 +534,7 @@ class ColoniesServer:
             return None
         child.wait_for_parents = False
         self.db.update_process(child)
+        self.db.requeue(child)
         return child
 
     def _fail_descendants(self, p: Process, reason: str, ts: int) -> None:
@@ -598,40 +601,52 @@ class ColoniesServer:
         """One failsafe pass. A running process past its ``maxexectime``
         goes back to the queue with ``retries + 1`` (or fails once its
         retries are spent); a waiting one past its ``maxwaittime`` fails.
-        Each change is re-checked under the colony lock."""
+        The deadline indexes hand back what had expired when they were
+        read, possibly as copies: each process is re-read under its
+        colony lock and re-checked before it changes, and one that has
+        gone since is skipped."""
         ts = now_ns()
         reset = failed = expired = 0
         woken: list[tuple[str, str]] = []
         for p in self.db.running_past_deadline(ts):
             with self.db.colony_lock(p.colonyname):
-                if p.state != RUNNING or not p.deadline_ns or p.deadline_ns >= ts:
-                    continue  # closed or re-assigned since the scan
-                if p.retries + 1 > max(p.spec.maxretries, 0):
-                    p.state = FAILED
-                    p.endtime_ns = ts
-                    p.errors = p.errors + ["maxretries exceeded after maxexectime reset"]
-                    self.db.update_process(p)
-                    self._fail_descendants(p, f"parent process {p.processid} failed", ts)
+                try:
+                    cur = self.db.get_process(p.processid)
+                except NotFoundError:
+                    continue
+                if cur.state != RUNNING or not cur.deadline_ns or cur.deadline_ns >= ts:
+                    continue  # closed or re-assigned since the index read
+                if cur.retries + 1 > max(cur.spec.maxretries, 0):
+                    cur.state = FAILED
+                    cur.endtime_ns = ts
+                    cur.errors = cur.errors + ["maxretries exceeded after maxexectime reset"]
+                    self.db.update_process(cur)
+                    self._fail_descendants(cur, f"parent process {cur.processid} failed", ts)
                     failed += 1
                 else:
-                    p.state = WAITING
-                    p.isassigned = False
-                    p.assignedexecutorid = ""
-                    p.starttime_ns = 0
-                    p.deadline_ns = 0
-                    p.retries += 1
-                    self.db.update_process(p)
-                    woken.append(self._queue_key(p))
+                    cur.state = WAITING
+                    cur.isassigned = False
+                    cur.assignedexecutorid = ""
+                    cur.starttime_ns = 0
+                    cur.deadline_ns = 0
+                    cur.retries += 1
+                    self.db.update_process(cur)
+                    self.db.requeue(cur)
+                    woken.append(self._queue_key(cur))
                     reset += 1
         for p in self.db.waiting_past_deadline(ts):
             with self.db.colony_lock(p.colonyname):
-                if p.state != WAITING or not p.waitdeadline_ns or p.waitdeadline_ns >= ts:
+                try:
+                    cur = self.db.get_process(p.processid)
+                except NotFoundError:
                     continue
-                p.state = FAILED
-                p.endtime_ns = ts
-                p.errors = p.errors + ["maxwaittime exceeded"]
-                self.db.update_process(p)
-                self._fail_descendants(p, f"parent process {p.processid} failed", ts)
+                if cur.state != WAITING or not cur.waitdeadline_ns or cur.waitdeadline_ns >= ts:
+                    continue
+                cur.state = FAILED
+                cur.endtime_ns = ts
+                cur.errors = cur.errors + ["maxwaittime exceeded"]
+                self.db.update_process(cur)
+                self._fail_descendants(cur, f"parent process {cur.processid} failed", ts)
                 expired += 1
         if woken:
             self._notify_queue(woken)

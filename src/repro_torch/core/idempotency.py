@@ -4,7 +4,9 @@ A copy of the ``SPEC`` table and ``classify`` of the reference's
 ``repro/core/idempotency.py``: the client stamps a signed ``msgid`` into
 every KEYED envelope. Of the broker's per-request helpers, the
 request-msgid context (``set_current``/``reset_current``/``current``)
-is copied too: the HA broker stamps it onto its replicated ops.
+is copied too: the HA broker stamps it onto its replicated ops; and
+``reply_colony``, the colony whose share of the dedup table a record
+counts against.
 
 Retrying transports give at-least-once delivery; this spec is how the
 repo turns that into exactly-once *effect*. Every payloadtype in the
@@ -98,3 +100,27 @@ def reset_current(token: contextvars.Token) -> None:
 
 def current() -> str:
     return _request_msgid.get()
+
+
+def reply_colony(payloadtype: str, payload: dict, result) -> str:
+    """Best-effort colony attribution for a dedup record (for eviction
+    accounting only; correctness never depends on it)."""
+    if isinstance(payload, dict):
+        c = payload.get("colonyname")
+        if c:
+            return str(c)
+        spec = payload.get("spec") or payload.get("workflow") or {}
+        if isinstance(spec, dict):
+            c = spec.get("conditions", {}).get("colonyname") or spec.get("colonyname")
+            if c:
+                return str(c)
+    if isinstance(result, dict):
+        c = result.get("colonyname")
+        if c:
+            return str(c)
+        procs = result.get("processes")
+        if isinstance(procs, list) and procs and isinstance(procs[0], dict):
+            c = procs[0].get("spec", {}).get("conditions", {}).get("colonyname")
+            if c:
+                return str(c)
+    return ""

@@ -1,25 +1,24 @@
 """The port's client and ``ExecutorBase`` under RPC faults, against the
-reference's broker and its server-side fault sites (``repro.runtime.faults``).
+port's broker over both of its databases and its server-side fault sites
+(``repro_torch.runtime.faults``).
 
 The port's copies of ``tests/test_faults.py``'s exactly-once matrix for
-submit, close and assign, and of its pending-close journal tests. The
-port's transports carry no fault sites of their own, so a lost request is
-the broker dying before dispatch (``server.pre_dispatch``), a lost reply
-the broker dying after its commit (``server.post_commit``), and a
-duplicate a transport that delivers every envelope twice."""
+submit, close and assign, and of its pending-close journal tests. A lost
+request is the broker dying before dispatch (``server.pre_dispatch``), a
+lost reply the broker dying after its commit (``server.post_commit``), and
+a duplicate a transport that delivers every envelope twice."""
 
 import time
 
 import pytest
 
-from repro.core import MemoryDatabase, SqliteDatabase
-from repro.core.cluster import standalone_server
-from repro.runtime import faults
-from repro.runtime.faults import FaultPlan, FaultRule
+from repro_torch.broker import MemoryDatabase, SqliteDatabase, standalone_server
 from repro_torch.core.client import Colonies, InProcTransport
 from repro_torch.core.crypto import Crypto
 from repro_torch.core.executor import ExecutorBase
 from repro_torch.core.retry import RetryPolicy
+from repro_torch.runtime import faults
+from repro_torch.runtime.faults import FaultPlan, FaultRule
 
 SPEC = {"funcname": "echo", "conditions": {"colonyname": "dev", "executortype": "cli"}}
 

@@ -16,7 +16,7 @@ import time
 import pytest
 
 from repro.core.cluster import HAColonyCluster as RefHAColonyCluster
-from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, statehash
+from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, SqliteDatabase, statehash
 from repro_torch.core import errors
 from repro_torch.core.client import Colonies, InProcTransport
 from repro_torch.core.crypto import Crypto
@@ -37,11 +37,12 @@ def spec(args=None, **kw):
 
 class _Rig:
     """A started three-replica cluster with a 'dev' colony, reached in
-    process or over one HTTP server per replica."""
+    process or over one HTTP server per replica, over ``db`` (the cluster's
+    own ``MemoryDatabase`` when None)."""
 
-    def __init__(self, via: str, seed: int, failsafe_interval: float = 0.2):
+    def __init__(self, via: str, seed: int, failsafe_interval: float = 0.2, db=None):
         self.server_prv, self.colony_prv = Crypto.prvkey(), Crypto.prvkey()
-        self.cluster = HAColonyCluster(Crypto.id(self.server_prv), replicas=3, seed=seed)
+        self.cluster = HAColonyCluster(Crypto.id(self.server_prv), replicas=3, db=db, seed=seed)
         self.https = []
         if via == "http":
             self.https = [ColoniesHttpServer(s) for s in self.cluster.servers]
@@ -105,7 +106,16 @@ def test_ha_cluster_failover(via):
 
 def test_ha_exactly_once_assignment(via):
     """Two executors racing on the same queue never get the same process."""
-    rig = _Rig(via, seed=12)
+    _exactly_once(_Rig(via, seed=12))
+
+
+def test_ha_exactly_once_assignment_over_sqlite(tmp_path):
+    """The same race with the replicas sharing one ``SqliteDatabase`` file,
+    as the paper's replicas share one Postgres."""
+    _exactly_once(_Rig("inproc", seed=12, db=SqliteDatabase(str(tmp_path / "ha.db"))))
+
+
+def _exactly_once(rig: "_Rig") -> None:
     try:
         seen: list[str] = []
         executors = [ExecutorBase(rig.new_client(), "dev", f"race-{i}", "worker",
