@@ -170,7 +170,16 @@ Phases, each of which exits non-zero when it fails:
      drain ``HA_BACKLOG`` echo processes (tokens equal to generate, 32
      flash attention launches a prefill, each process ended once; the
      failover's seconds and each batch beside ``[executors-serve-full]``'s);
- 16. ``[launch]``: the launchers' own CLIs through the broker and the
+     every broker process of phases 11-15 runs under the port's runtime
+     detectors (``DETECTOR_ENV``: the lock-order detector and the auth-fact
+     contracts), and its report is read at the end of each phase and
+     before each SIGKILL: both detectors on, no lock-order violation, no
+     contract error, and the lock families the process must use held;
+ 16. ``[contracts]``: the port's six static gates (``python -m
+     repro_torch.analysis.{lint,authlint,replint,idemlint}`` and
+     ``{authmap,replmap} --check`` against ``TORCH_CONTRACTS.md``), each
+     exiting 0, and every broker process's report, phase by phase;
+ 17. ``[launch]``: the launchers' own CLIs through the broker and the
      executors: ``launch.serve`` of full-width stablelm-3b (float32) in
      this process, 8 requests in 2 waves of 4: 2 batches of 4, 32 flash
      attention launches a prefill and none of the scans, tokens equal to
@@ -186,7 +195,7 @@ Phases, each of which exits non-zero when it fails:
      (float32, AdamW, 2 steps, its whole state checkpointed through CFS and
      restored by ``evaluate``), held the same way to the direct handlers,
      each run in a child process of its own;
- 17. each kernel, its plain twin and, where there is one, a PyTorch call
+ 18. each kernel, its plain twin and, where there is one, a PyTorch call
      computing the same function, timed at a prefill shape and at the
      serving shapes beside the card's bound (flash attention also at
      mixtral's window of 4,096 over 4,352 tokens, at MLA's prefill,
@@ -2689,6 +2698,74 @@ def reference_modules(modules) -> list[str]:
     return sorted(n for n in modules if n == "repro" or n.startswith(("repro.", "jax")))
 
 
+# Every broker process runs under the port's runtime detectors
+# (``repro_torch.analysis``): the lock-order detector and the auth-fact
+# contracts, switched on by its environment before the broker is built.
+DETECTOR_ENV = {"REPRO_LOCK_CHECK": "1", "REPRO_AUTH_CHECK": "1"}
+# What a broker process runs after registering the package: ``checked``
+# wraps a server's ``handle`` to note each contract error a handler raised
+# (and raise it on: the request fails), and ``report()`` is its answer to
+# the harness's ``report``: whether each detector is on, the lock-order
+# violations and contract errors since the process started, and per lock
+# family the holds and the longest hold in ms since the last report
+# (``holds``) and since the start (``holds_total``).
+DETECTOR_SOURCE = """\
+from repro_torch.analysis import authtrack, locktrack, statehash
+from repro_torch.analysis.authtrack import AuthContractError
+from repro_torch.analysis.contracts import LockContractError
+contract_errors, holds_total = [], {}
+
+def checked(handle):
+    def wrapped(envelope, *args, **kwargs):
+        try:
+            return handle(envelope, *args, **kwargs)
+        except (AuthContractError, LockContractError) as e:
+            contract_errors.append(repr(e))
+            raise
+    return wrapped
+
+def report(**extra):
+    with locktrack._REG.guard:  # read and restart the hold window at once
+        holds = {f: [st["count"], st["max_ns"] / 1e6] for f, st in locktrack._REG.holds.items()}
+        locktrack._REG.holds.clear()
+        violations = [dict(v) for v in locktrack._REG.violations]
+    for f, (n, ms) in holds.items():
+        tn, tms = holds_total.get(f, (0, 0.0))
+        holds_total[f] = [tn + n, max(tms, ms)]
+    return {"lock_check": locktrack.is_enabled(), "auth_check": authtrack.is_enabled(),
+            "repl_check": statehash.is_enabled(), "violations": violations,
+            "contract_errors": list(contract_errors), "holds": holds,
+            "holds_total": dict(holds_total), **extra}
+"""
+REPORTS: list[dict] = []  # every broker process's reports, for [contracts]
+# the lock families a broker process must have held by its last report:
+# the memory database's, the sqlite file's (it has no shard or glock), and
+# the replicated broker's (a MemoryDatabase behind Raft)
+MEMORY_FAMILIES = ("shard", "glock", "queuecv")
+SQLITE_FAMILIES = ("sqlite", "dbcolony", "queuecv")
+HA_FAMILIES = MEMORY_FAMILIES + ("raft", "cluster", "applied")
+
+
+def check_report(rep: dict, tag: str, families: tuple[str, ...]) -> dict:
+    """Hold a broker process's ``report`` to the detectors' contract: both
+    detectors on, no lock-order violation, no contract error, no error in
+    the failsafe loop (which would swallow one), and each of ``families``
+    held at least once since the process started."""
+    REPORTS.append(dict(rep, tag=tag))
+    holds = ", ".join(f"{f} {n} ({ms:.3f} ms)" for f, (n, ms) in sorted(rep["holds"].items()))
+    print(f"{tag} detectors: lock {rep['lock_check']}, auth {rep['auth_check']}, replication "
+          f"{rep['repl_check']}; {len(rep['violations'])} lock-order violations, "
+          f"{len(rep['contract_errors'])} contract errors; holds since the last report "
+          f"(longest): {holds}")
+    check(rep["lock_check"] and rep["auth_check"], f"{tag} a detector is off: {rep}")
+    check(not rep["violations"], f"{tag} lock-order violations {rep['violations']}")
+    check(not rep["contract_errors"], f"{tag} contract errors {rep['contract_errors']}")
+    check(rep["failsafe_errors"] == 0, f"{tag} failsafe errors {rep['failsafe_errors']}")
+    unused = [f for f in families if rep["holds_total"].get(f, (0,))[0] == 0]
+    check(not unused, f"{tag} families never held in this broker process: {unused}")
+    return rep
+
+
 # The broker process. ColonyOS deploys the broker as a service of its own,
 # which executors on any platform reach only through the signed JSON
 # protocol over HTTP; so it runs here as a separate process, and this
@@ -2702,20 +2779,23 @@ def reference_modules(modules) -> list[str]:
 # as it is) and the port (0: a free one). It verifies every signature
 # (and shows that it refuses an unsigned request), runs the failsafe
 # scanner and the generators' ticks every 0.1 s, prints its port, then
-# what it imported and the seconds it took to open the database, and
-# waits to be killed.
+# what it imported and the seconds it took to open the database. It runs
+# under the port's detectors (``DETECTOR_ENV``, ``DETECTOR_SOURCE``) and
+# answers ``report`` on stdin with one JSON line until it is killed.
 BROKER_SOURCE = """\
 import json, sys, threading, time, types
 t0 = time.perf_counter()
 pkg = types.ModuleType("repro_torch")
 pkg.__path__ = [sys.argv[2]]
 sys.modules["repro_torch"] = pkg
+""" + DETECTOR_SOURCE + """\
 from repro_torch.broker import (ColoniesHttpServer, MemoryDatabase, SqliteDatabase,
                                 standalone_server)
 t_open = time.perf_counter()
 db = MemoryDatabase() if sys.argv[3] == "memory" else SqliteDatabase(sys.argv[3])
 open_s = time.perf_counter() - t_open
 srv = standalone_server(sys.argv[1], db)
+srv.handle = checked(srv.handle)
 http = ColoniesHttpServer(srv, port=int(sys.argv[4]))
 http.start()
 srv.start_background(failsafe_interval=0.1)
@@ -2727,6 +2807,12 @@ print(json.dumps({"refuses_unsigned": unsigned.get("status") == 403,
                   "open_s": open_s,
                   "torch_or_jax": sorted(tops & {"torch", "jax", "jaxlib"}),
                   "reference": sorted(tops & {"repro"})}), flush=True)
+for line in sys.stdin:
+    if line.split() == ["report"]:
+        out = report(failsafe_errors=srv.failsafe_errors)
+    else:
+        out = {"error": f"unknown command {line.strip()!r}"}
+    print(json.dumps(out), flush=True)
 threading.Event().wait()
 """
 COLONY = "h100"
@@ -2765,7 +2851,8 @@ class Broker:
         self.proc = subprocess.Popen(
             [sys.executable, "-c", BROKER_SOURCE, Crypto.id(self.server_prv),
              str(root / "src" / "repro_torch"), self.db, str(self.port)],
-            cwd=root, stdout=subprocess.PIPE, text=True)
+            cwd=root, stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            env=dict(os.environ, **DETECTOR_ENV))
         try:
             port = self.proc.stdout.readline().strip()
             self.up_at = time.perf_counter()
@@ -2778,12 +2865,22 @@ class Broker:
             self.close()
             raise
 
-    def kill(self) -> None:
-        """SIGKILL, no terminate: the process gets no chance to flush."""
+    def report(self, tag: str, families: tuple[str, ...] = ()) -> dict:
+        """The process's detector report, held by ``check_report``."""
+        check(self.alive(), f"{tag} the broker process died before its report")
+        self.proc.stdin.write("report\n")
+        self.proc.stdin.flush()
+        return check_report(json.loads(self.proc.stdout.readline()), tag, families)
+
+    def kill(self, tag: str, families: tuple[str, ...]) -> None:
+        """SIGKILL, no terminate: the process gets no chance to flush. Its
+        detector report is read first."""
+        self.report(tag, families)
         self.killed_at = time.perf_counter()
         self.proc.kill()
         self.proc.wait(timeout=10)
-        self.proc.stdout.close()
+        for pipe in (self.proc.stdin, self.proc.stdout):
+            pipe.close()
 
     def restart(self) -> float:
         """A new process on the same port over the same database; returns
@@ -2802,8 +2899,9 @@ class Broker:
             except subprocess.TimeoutExpired:
                 self.proc.kill()
                 self.proc.wait(timeout=10)
-        if not self.proc.stdout.closed:
-            self.proc.stdout.close()
+        for pipe in (self.proc.stdin, self.proc.stdout):
+            if not pipe.closed:
+                pipe.close()
 
 
 def signed_stats(broker: Broker, n: int) -> tuple[dict, list[float]]:
@@ -3195,7 +3293,7 @@ def phase_durable_broker(broker: Broker, want: dict, written_s: float, alone: di
     check(counts(stats) == dict(want, running=0), f"colonystats {stats}, written {want}")
     rtt = sum(seconds) / len(seconds)
     open_s = broker.info["open_s"]
-    broker.kill()
+    broker.kill(tag, ("sqlite",))  # this process served colonystats only
     restart_s = broker.restart()
     check(broker.info["torch_or_jax"] == [] and broker.info["reference"] == [],
           f"the restarted broker imported {broker.info['torch_or_jax'] + broker.info['reference']}")
@@ -3258,7 +3356,7 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
             check(time.perf_counter() - t0 < 600, "no checkpoint of run durable was listed")
             time.sleep(0.05)
         before = client.get_process(p["processid"], prv)
-        broker.kill()
+        broker.kill(tag, SQLITE_FAMILIES)
         restart_s.append(broker.restart())
         after = client.get_process(p["processid"], prv)
         print(f"{tag} the first checkpoint listed {time.perf_counter() - t0:.3f} s after the "
@@ -3287,7 +3385,7 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         rng = np.random.default_rng(5)
         prompts = [rng.integers(0, 256, n).tolist() for n in (5, 12, 9, 16)]
         rids = [infc.submit(pr, max_new_tokens=8) for pr in prompts[:2]]
-        broker.kill()  # two packs stored, their replies in hand: none in flight
+        broker.kill(tag, SQLITE_FAMILIES)  # two packs stored, their replies in hand: none in flight
         restart_s.append(broker.restart())
         rids += [infc.submit(pr, max_new_tokens=8) for pr in prompts[2:]]
         served = [infc.wait(r, timeout=120) for r in rids]
@@ -3356,7 +3454,7 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
         served, batch_s = [], []
         for i, batch in enumerate(batches):
             if i:
-                broker.kill()
+                broker.kill(tag, SQLITE_FAMILIES)
                 restart_s = broker.restart()
             t = time.perf_counter()
             rids = [infc.submit(r["prompt"], max_new_tokens=NEW_TOKENS) for r in batch]
@@ -3401,16 +3499,20 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
 # ``revive i``; ``stats`` (terms, commit and applied indexes, the first
 # replication divergence, threads, replicas alive, and the last kill's
 # failover: seconds to a new leader and to the first assign a replica other
-# than the killed one served). No leader within 10 s exits 3.
+# than the killed one served); ``report`` (the detectors' report, as
+# BROKER_SOURCE's). No leader within 10 s exits 3.
 HA_BROKER_SOURCE = """\
 import json, sys, threading, time, types
 t0 = time.perf_counter()
 pkg = types.ModuleType("repro_torch")
 pkg.__path__ = [sys.argv[2]]
 sys.modules["repro_torch"] = pkg
-from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, statehash
+""" + DETECTOR_SOURCE + """\
+from repro_torch.broker import ColoniesHttpServer, HAColonyCluster
 statehash.enable(True)
 cluster = HAColonyCluster(sys.argv[1], replicas=3, seed=int(sys.argv[3]))
+for srv in cluster.servers:
+    srv.handle = checked(srv.handle)
 https = [ColoniesHttpServer(s) for s in cluster.servers]
 assigns = [[] for _ in cluster.servers]  # time.monotonic() of each assign served
 
@@ -3485,6 +3587,8 @@ for line in sys.stdin:
                    "replicas_alive": [h._thread.is_alive() and s._failsafe_thread.is_alive()
                                       for h, s in zip(https, cluster.servers)],
                    "threads": threading.active_count()}
+        elif cmd[0] == "report":
+            out = report(failsafe_errors=sum(s.failsafe_errors for s in cluster.servers))
         else:
             out = {"error": f"unknown command {line.strip()!r}"}
     except Exception as e:
@@ -3522,7 +3626,7 @@ class HABroker:
         self.proc = subprocess.Popen(
             [sys.executable, "-c", HA_BROKER_SOURCE, Crypto.id(self.server_prv),
              str(root / "src" / "repro_torch"), str(HA_SEED)], cwd=root, stdin=subprocess.PIPE,
-            stdout=subprocess.PIPE, text=True)
+            stdout=subprocess.PIPE, text=True, env=dict(os.environ, **DETECTOR_ENV))
         try:
             ports = self.proc.stdout.readline().strip()
             info = self.proc.stdout.readline().strip()
@@ -3562,6 +3666,10 @@ class HABroker:
             check(time.perf_counter() < deadline, f"no leader within {timeout} s")
             time.sleep(0.02)
         return int(lid[1:])
+
+    def report(self, tag: str, families: tuple[str, ...] = ()) -> dict:
+        """The process's detector report, held by ``check_report``."""
+        return check_report(self.command("report"), tag, families)
 
     def stats(self) -> dict:
         st = self.command("stats")
@@ -3948,6 +4056,48 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
     return counts, stats
 
 
+# [contracts]: the port's six static gates, each in a child process of its
+# own, all started together
+CONTRACT_GATES = [["lint"], ["authlint"], ["replint"], ["idemlint"], ["authmap", "--check"],
+                  ["replmap", "--check"]]
+
+
+def phase_contracts() -> dict:
+    """The port's four lints and its two matrices' drift checks
+    (``python -m repro_torch.analysis.<gate>`` from the checkout's root,
+    against ``TORCH_CONTRACTS.md``): each exits 0; then every broker
+    process's detector report of this run, phase by phase."""
+    tag = "[contracts]"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root / "src")] + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    procs = [(gate, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.analysis.{gate[0]}", *gate[1:]], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)) for gate in CONTRACT_GATES]
+    gates = {}
+    for gate, t, proc in procs:
+        out, _ = proc.communicate(timeout=300)
+        lines = out.strip().splitlines()
+        name = " ".join(gate)
+        gates[name] = {"rc": proc.returncode, "s": time.perf_counter() - t,
+                       "said": lines[-1] if lines else ""}
+        print(f"{tag} {name}: exit {proc.returncode} after {gates[name]['s']:.3f} s: "
+              f"{gates[name]['said']}")
+        check(proc.returncode == 0, f"{tag} {name} failed:\n{out[-4000:]}")
+    longest: dict[str, dict[str, float]] = {}
+    for rep in REPORTS:
+        for fam, (_, ms) in rep["holds"].items():
+            longest.setdefault(rep["tag"], {})[fam] = ms
+        print(f"{tag} report at the end of {rep['tag']}: {len(rep['violations'])} lock-order "
+              f"violations, {len(rep['contract_errors'])} contract errors, holds "
+              f"{json.dumps(rep['holds'])}")
+    seconds = time.perf_counter() - t0
+    print(f"{tag} six gates at 0 violations in {seconds:.3f} s; {len(REPORTS)} broker reports, "
+          f"every one with 0 violations and 0 contract errors")
+    return {"gates": gates, "longest_hold_ms": longest, "seconds": seconds}
+
+
 def phase_launch_serve() -> tuple[dict, dict]:
     """``launch.serve.main`` of full-width stablelm-3b on the card: the
     broker in this process, a ServeExecutor (float32) behind a generator of
@@ -4269,9 +4419,12 @@ def main() -> int:
     broker = Broker()
     try:
         broker_stats = phase_broker(broker)
+        broker.report("[broker]")
         executor_counts, executor_stats = phase_executors_continuum(broker)
+        broker.report("[executors-continuum]")
         serve_exec_counts, serve_exec_stats = phase_executors_serve_full(broker)
         check(broker.alive(), "the broker process died")
+        broker.report("[executors-serve-full]", MEMORY_FAMILIES)
     finally:
         broker.close()
     mark("broker and executors")
@@ -4285,18 +4438,24 @@ def main() -> int:
         durable_serve_counts, durable_serve_stats = phase_durable_serve_full(durable,
                                                                              serve_exec_stats)
         check(durable.alive(), "the broker process died")
+        durable.report("[durable-serve-full]", SQLITE_FAMILIES)
     finally:
         durable.close()
     mark("durable")
     ha = HABroker()
     try:
         ha_broker_stats = phase_ha_broker(ha)
+        ha.report("[ha-broker]")
         ha_cont_counts, ha_cont_stats = phase_ha_continuum(ha, executor_stats)
+        ha.report("[ha-continuum]")
         ha_serve_counts, ha_serve_stats = phase_ha_serve_full(ha, serve_exec_stats)
         check(ha.alive(), "the replicated broker process died")
+        ha.report("[ha-serve-full]", HA_FAMILIES)
     finally:
         ha.close()
     mark("ha")
+    contracts_stats = phase_contracts()
+    mark("contracts")
     launch_serve_counts, launch_stats = phase_launch_serve()
     mark("launch serve")
     launch_train_counts = child_phase("--launch-train", "[launch]")
@@ -4361,6 +4520,7 @@ def main() -> int:
           f"{json.dumps(durable_cont_stats)}; durable-serve-full {json.dumps(durable_serve_stats)}")
     print(f"[done] ha-broker {json.dumps(ha_broker_stats)}; ha-continuum "
           f"{json.dumps(ha_cont_stats)}; ha-serve-full {json.dumps(ha_serve_stats)}")
+    print(f"[done] contracts {json.dumps(contracts_stats)}")
     print(f"[done] launch.serve {json.dumps(launch_stats)}; launch.train full "
           f"{json.dumps(launch_full_stats)}")
     print(f"[done] dryrun {json.dumps(dryrun_rows)}")

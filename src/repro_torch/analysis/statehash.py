@@ -1,16 +1,14 @@
 """Runtime replication-divergence contracts (the dynamic half of replint).
 
-A copy of the runtime half of the reference's
-``repro/analysis/statehash.py``, stdlib only, with the same
-``REPRO_REPL_CHECK`` switch. The reference's static half (``replint``)
-is not copied.
+A copy of the reference's ``repro/analysis/statehash.py``, stdlib
+only, with the same ``REPRO_REPL_CHECK`` switch.
 
 The paper's HA deployment (§3.4.1, Fig. 3) serializes broker mutations
 through a Raft log so replicas stay interchangeable across failover.
 That only holds if every applied op is deterministic (same entry, same
 resulting state on every node) and idempotent (replaying an entry is a
-no-op). the reference's ``replint`` proves those properties statically over
-the apply cone; this module checks them at runtime:
+no-op). :mod:`repro_torch.analysis.replint` proves those properties
+statically over the apply cone; this module checks them at runtime:
 
 * :class:`ColonyDigest` — an **incremental per-colony digest** of broker
   state. Each process contributes one hash over its replication-visible
@@ -42,8 +40,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import threading
 from typing import Any
+
+from .locktrack import make_lock
 
 
 class ReplicationDivergenceError(AssertionError):
@@ -181,7 +180,7 @@ class ClusterJournal:
     """
 
     def __init__(self) -> None:
-        self._lock = threading.RLock()
+        self._lock = make_lock("repljournal")
         self._journals: dict[str, list[tuple[int, str]]] = {}
         self._chains: dict[str, str] = {}
         # First digest journaled per index, and by whom (the cross-check).
@@ -207,7 +206,7 @@ class ClusterJournal:
                     f"replica state diverged at raft index {index}:"
                     f" node {node_id} journaled {digest[:16]}… but node"
                     f" {first[1]} journaled {first[0][:16]}… (nondeterministic"
-                    " or non-idempotent apply — see REPLICATION.md)"
+                    " or non-idempotent apply — see TORCH_CONTRACTS.md)"
                 )
 
     def entries(self, node_id: str) -> list[tuple[int, str]]:

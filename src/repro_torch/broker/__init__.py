@@ -1,17 +1,18 @@
 """The broker side of ColonyOS, copied from the reference's ``repro.core``
 (``server``, ``database``, ``generator``, ``cron``, ``raft``,
 ``cluster``, the metadata half of ``fs``, the server half of
-``http_transport``) and the runtime half of its
-``analysis.statehash``: the indexed in-memory database or the sqlite
+``http_transport``), checked by the port's analysis plane
+(``repro_torch.analysis``): the indexed in-memory database or the sqlite
 one, a file that outlives the broker process (§3.4.3), under one replica
 (``standalone_server``) or several behind Raft (``HAColonyCluster``,
 paper §3.4.1, Fig. 3).
 
 ColonyOS deploys the broker as a service of its own, which executors
 reach only through the signed JSON protocol. This package imports the
-standard library and the stdlib modules ``repro_torch.core`` and
-``repro_torch.runtime.faults``, never torch, so that ``chip_smoke.py``
-can run it as a separate process beside the executors on the card::
+standard library and the stdlib modules ``repro_torch.core``,
+``repro_torch.analysis`` and ``repro_torch.runtime.faults``, never
+torch, so that ``chip_smoke.py`` can run it as a separate process beside
+the executors on the card::
 
     srv = standalone_server(server_id)  # or (server_id, SqliteDatabase(path))
     http = ColoniesHttpServer(srv)

@@ -44,11 +44,6 @@ class CFSExtension:
     def tick(self) -> None:  # no periodic work
         pass
 
-    def _member(self, identity: str, payload: dict) -> str:
-        colony = payload["colonyname"]
-        self.server._require_member(identity, colony)
-        return colony
-
     def _h_add_file(self, identity: str, payload: dict) -> dict:
         f = payload["file"]
         colony = f.get("colonyname", "")
@@ -81,7 +76,8 @@ class CFSExtension:
         return self.db.cfs_add_file(entry)  # revision = head + 1
 
     def _h_get_file(self, identity: str, payload: dict) -> dict:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         if "fileid" in payload:
             e = self.db.cfs_get_file(colony, payload["fileid"])
             if e is None:
@@ -94,11 +90,13 @@ class CFSExtension:
         return e
 
     def _h_get_files(self, identity: str, payload: dict) -> list[dict]:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         return self.db.cfs_list(colony, _norm_label(payload["label"]))
 
     def _h_remove_file(self, identity: str, payload: dict) -> dict:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         fileid = payload["fileid"]
         # a revision pinned by a snapshot raises ConflictError
         if self.db.cfs_remove_file(colony, fileid) is None:
@@ -106,7 +104,8 @@ class CFSExtension:
         return {"fileid": fileid, "removed": True}
 
     def _h_create_snapshot(self, identity: str, payload: dict) -> dict:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         return self.db.cfs_create_snapshot({
             "snapshotid": secrets.token_hex(16),
             "colonyname": colony,
@@ -116,7 +115,8 @@ class CFSExtension:
         })
 
     def _h_get_snapshot(self, identity: str, payload: dict) -> dict:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         s = self.db.cfs_get_snapshot(colony, payload["snapshotid"])
         if s is None:
             raise NotFoundError("snapshot not found")
@@ -129,10 +129,13 @@ class CFSExtension:
         return s
 
     def _h_get_snapshots(self, identity: str, payload: dict) -> list[dict]:
-        return self.db.cfs_list_snapshots(self._member(identity, payload))
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
+        return self.db.cfs_list_snapshots(colony)
 
     def _h_remove_snapshot(self, identity: str, payload: dict) -> dict:
-        colony = self._member(identity, payload)
+        colony = payload["colonyname"]
+        self.server._require_member(identity, colony)
         sid = payload["snapshotid"]
         if self.db.cfs_remove_snapshot(colony, sid) is None:
             raise NotFoundError("snapshot not found")

@@ -18,12 +18,12 @@ unverified path).
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 
+from ..analysis import statehash
+from ..analysis.locktrack import make_lock
 from ..core.errors import ConflictError, NotFoundError
-from . import statehash
 from .cfs import CFSExtension
 from .cron import CronExtension
 from .database import Database, MemoryDatabase
@@ -76,7 +76,7 @@ class HAColonyCluster:
         # serialization point for assign/close/failsafe across ALL replicas.
         self.db = db if db is not None else MemoryDatabase()
         self.servers: list[ColoniesServer] = []
-        self._applied_lock = threading.RLock()
+        self._applied_lock = make_lock("applied")
         # Bounded replay-dedup window; the per-op CAS (see REPLICATED_OPS)
         # is the authoritative idempotence guard for anything older.
         self._applied_ops: set[str] = set()

@@ -42,10 +42,12 @@ prefix it walked in a single pass, and a whole queue is rebuilt once its
 stale count dominates — never one ``list.remove`` per entry.
 
 What differs from the reference: ``Colony`` and ``Executor`` live here
-(the port's ``core.process`` holds only what an executor reads); the
-locks are plain ``threading.RLock``s and each lock contract is a
-docstring line (the reference's lock-order and authorization checkers
-belong to its analysis plane). The memory backend hands out the stored
+(the port's ``core.process`` holds only what an executor reads). As in
+the reference, every lock comes from ``analysis.locktrack.make_lock``
+under the families ``shard:``, ``cfs:``, ``glock``, ``sqlite`` and
+``dbcolony:``, the shard and sqlite helpers declare their lock with
+``@requires_lock``, and the colony-scoped entry points are guarded by
+``analysis.authtrack`` (``Database.__init_subclass__``). The memory backend hands out the stored
 ``Process`` objects themselves, the sqlite backend fresh copies: callers
 re-read a process under its colony lock before they check or mutate it.
 Stdlib only.
@@ -65,8 +67,11 @@ from typing import Any, Iterable
 
 from ..core.errors import ConflictError, NotFoundError
 from ..core.process import RUNNING, WAITING, Process, now_ns
+from ..analysis.authtrack import guard_database_subclass
+from ..analysis.contracts import requires_lock
+from ..analysis.locktrack import make_lock
+from ..analysis.statehash import process_state_tuple
 from ..runtime import faults
-from .statehash import process_state_tuple
 
 
 @dataclass
@@ -130,6 +135,13 @@ DEDUP_MAX_PER_COLONY = 4096
 
 class Database:
     """Abstract storage interface shared by all Colonies server replicas."""
+
+    def __init_subclass__(cls, **kwargs) -> None:
+        super().__init_subclass__(**kwargs)
+        # Under REPRO_AUTH_CHECK=1, colony-scoped entry points refuse to
+        # run inside a request that never recorded an auth fact for the
+        # colony they touch (see analysis/authtrack.py).
+        guard_database_subclass(cls)
 
     # -- colonies ---------------------------------------------------------
     def add_colony(self, colony: Colony) -> None:
@@ -228,7 +240,7 @@ class Database:
         """Replication-visible rows of one colony, for digest cross-checks.
 
         One tuple per process, matching
-        :func:`repro_torch.broker.statehash.process_state_tuple`: (processid,
+        :func:`repro_torch.analysis.statehash.process_state_tuple`: (processid,
         state, assignedexecutorid, retries, wait_for_parents, queue_ready,
         starttime_ns, endtime_ns). Order is unspecified — the digest fold
         is order-independent.
@@ -389,7 +401,7 @@ class _ColonyShard:
     )
 
     def __init__(self, colony: str = "") -> None:
-        self.lock = threading.RLock()
+        self.lock = make_lock(f"shard:{colony}")
         self.procs: dict[str, Process] = {}
         # executortype -> sorted [(priority_time, pid)] of ready untargeted procs
         self.queues: dict[str, list[tuple[int, str]]] = {}
@@ -418,7 +430,7 @@ class _CfsShard:
     __slots__ = ("lock", "files", "by_label", "children", "snapshots", "pins")
 
     def __init__(self, colony: str = "") -> None:
-        self.lock = threading.RLock()
+        self.lock = make_lock(f"cfs:{colony}")
         self.files: dict[str, dict] = {}
         self.by_label: dict[str, dict[str, list[tuple[int, str]]]] = {}
         self.children: dict[str, set[str]] = {}
@@ -434,7 +446,7 @@ class MemoryDatabase(Database):
     def __init__(self) -> None:
         # Registries + shard map only; a LEAF lock (see CONCURRENCY.md):
         # nothing may be acquired and nothing may block while holding it.
-        self._glock = threading.RLock()
+        self._glock = make_lock("glock")
         self._colonies: dict[str, Colony] = {}
         self._executors: dict[str, Executor] = {}
         self._functions: list[dict] = []
@@ -567,8 +579,8 @@ class MemoryDatabase(Database):
             ]
 
     # -- process bookkeeping (contract: shard lock held) ------------------------
+    @requires_lock("shard")
     def _account(self, s: _ColonyShard, p: Process) -> None:
-        """Contract: the caller holds the shard's lock."""
         old = s.acct.get(p.processid)
         if old == p.state:
             return
@@ -579,8 +591,8 @@ class MemoryDatabase(Database):
         s.counters[p.state] = s.counters.get(p.state, 0) + 1
         s.acct[p.processid] = p.state
 
+    @requires_lock("shard")
     def _note_stale(self, s: _ColonyShard, p: Process) -> None:
-        """Contract: the caller holds the shard's lock."""
         etype = p.spec.conditions.executortype
         # One unit per queue entry the process held: a multi-target process
         # left one entry in each target's side queue.
@@ -588,8 +600,8 @@ class MemoryDatabase(Database):
         s.stale[etype] = s.stale.get(etype, 0) + entries
         self._maybe_compact(s, etype)
 
+    @requires_lock("shard")
     def _maybe_compact(self, s: _ColonyShard, etype: str) -> None:
-        """Contract: the caller holds the shard's lock."""
         n_stale = s.stale.get(etype, 0)
         q = s.queues.get(etype, [])
         tmap = s.targeted.get(etype, {})
@@ -613,8 +625,8 @@ class MemoryDatabase(Database):
         self.metrics["compactions"] += 1
         self.metrics["stale_evicted"] += before - after
 
+    @requires_lock("shard")
     def _push_deadlines(self, s: _ColonyShard, p: Process) -> None:
-        """Contract: the caller holds the shard's lock."""
         pid = p.processid
         if p.state == RUNNING and p.deadline_ns:
             if s.exec_pushed.get(pid) != p.deadline_ns:
@@ -625,8 +637,8 @@ class MemoryDatabase(Database):
                 heapq.heappush(s.wait_heap, (p.waitdeadline_ns, pid))
                 s.wait_pushed[pid] = p.waitdeadline_ns
 
+    @requires_lock("shard")
     def _enqueue(self, s: _ColonyShard, p: Process) -> None:
-        """Contract: the caller holds the shard's lock."""
         # Blocked processes are side-lined entirely; they re-enter the ready
         # queues through requeue() when their last parent succeeds.
         if not p.queue_ready:
@@ -737,6 +749,7 @@ class MemoryDatabase(Database):
                     else:
                         break
 
+    @requires_lock("shard")
     def _scan_queue(
         self,
         s: _ColonyShard,
@@ -750,8 +763,6 @@ class MemoryDatabase(Database):
 
         Stale entries discovered in the scanned prefix are evicted in a
         single rebuild of that prefix — never one ``list.remove`` each.
-
-        Contract: the caller holds the shard's lock.
         """
         if not q:
             return []
@@ -830,6 +841,7 @@ class MemoryDatabase(Database):
             out.sort(key=lambda p: p.priority_time)
             return out[:count]
 
+    @requires_lock("shard")
     def _pop_expired(
         self,
         s: _ColonyShard,
@@ -839,7 +851,6 @@ class MemoryDatabase(Database):
         attr: str,
         ts: int,
     ) -> list[Process]:
-        """Contract: the caller holds the shard's lock."""
         expired: list[Process] = []
         keep: list[tuple[int, str]] = []
         while heap and heap[0][0] < ts:
@@ -911,11 +922,9 @@ class MemoryDatabase(Database):
 
     # -- CFS metadata -------------------------------------------------------
     @staticmethod
+    @requires_lock("cfs")
     def _cfs_link(s: _CfsShard, label: str) -> None:
-        """Wire a new label into the tree, up to the first existing edge.
-
-        Contract: the caller holds the CFS shard's lock.
-        """
+        """Wire a new label into the tree, up to the first existing edge."""
         while label != "/":
             parent = _cfs_parent(label)
             kids = s.children.setdefault(parent, set())
@@ -925,11 +934,9 @@ class MemoryDatabase(Database):
             label = parent
 
     @staticmethod
+    @requires_lock("cfs")
     def _cfs_prune(s: _CfsShard, label: str) -> None:
-        """Drop now-empty labels so the tree only holds live paths.
-
-        Contract: the caller holds the CFS shard's lock.
-        """
+        """Drop now-empty labels so the tree only holds live paths."""
         while label != "/" and not s.by_label.get(label) and not s.children.get(label):
             s.by_label.pop(label, None)
             s.children.pop(label, None)
@@ -978,8 +985,8 @@ class MemoryDatabase(Database):
         with s.lock:
             return self._cfs_list_locked(s, label)
 
+    @requires_lock("cfs")
     def _cfs_list_locked(self, s: _CfsShard, label: str) -> list[dict]:
-        """Contract: the caller holds the CFS shard's lock."""
         if label not in s.by_label and label not in s.children:
             return []
         out: list[dict] = []
@@ -1318,7 +1325,7 @@ class SqliteDatabase(Database):
     """
 
     def __init__(self, path: str = ":memory:") -> None:
-        self._lock = threading.RLock()
+        self._lock = make_lock("sqlite")
         self._colony_locks: dict[str, threading.RLock] = {}
         self._dedup_puts = 0  # amortized rpc_dedup eviction counter
         self._conn = sqlite3.connect(path, check_same_thread=False)
@@ -1485,15 +1492,15 @@ class SqliteDatabase(Database):
                 " GROUP BY colonyname, state"
             )
 
+    @requires_lock("sqlite")
     def _exec(self, sql: str, args: Iterable[Any] = ()) -> sqlite3.Cursor:
-        """Contract: the caller holds ``self._lock``."""
         return self._conn.execute(sql, tuple(args))
 
     def colony_lock(self, colony: str) -> threading.RLock:
         with self._lock:
             lk = self._colony_locks.get(colony)
             if lk is None:
-                lk = self._colony_locks[colony] = threading.RLock()
+                lk = self._colony_locks[colony] = make_lock(f"dbcolony:{colony}")
             return lk
 
     # colonies
@@ -1632,16 +1639,16 @@ class SqliteDatabase(Database):
             ]
 
     # processes
+    @requires_lock("sqlite")
     def _bump_count(self, colony: str, state: str, delta: int) -> None:
-        """Contract: the caller holds ``self._lock``."""
         self._exec(
             "INSERT INTO proc_counts VALUES (?,?,?)"
             " ON CONFLICT(colonyname,state) DO UPDATE SET n=n+excluded.n",
             (colony, state, delta),
         )
 
+    @requires_lock("sqlite")
     def _write_process(self, p: Process, insert: bool) -> None:
-        """Contract: the caller holds ``self._lock``."""
         body = p.to_json()
         if insert:
             self._exec(
@@ -1887,8 +1894,8 @@ class SqliteDatabase(Database):
             ).fetchone()
             return json.loads(row[0]) if row else None
 
+    @requires_lock("sqlite")
     def _cfs_list_locked(self, colony: str, label: str) -> list[dict]:
-        """Contract: the caller holds ``self._lock``."""
         # Two range probes of idx_cfs_head (an OR'd predicate makes sqlite
         # fall back to scanning the whole colony prefix): the label itself,
         # then its descendants — exactly [label+'/', label+'0'), '0' being

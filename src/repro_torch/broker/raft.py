@@ -16,8 +16,9 @@ on leader change is safe.
 A copy of the reference's ``repro/core/raft.py``, stdlib only: the same
 messages, timeouts and per-node seeds, so that with the same seed its
 simulated cluster takes the reference's elections step for step. Its
-locks are plain ``threading.RLock``s; the reference's lock-order
-contracts stand as docstring lines.
+locks come from ``analysis.locktrack.make_lock`` (``raft:<node>``,
+``cluster``), and ``propose_and_wait`` declares ``@no_locks_held`` for
+the database's families, as the reference's do.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from ..analysis import statehash
+from ..analysis.contracts import no_locks_held
+from ..analysis.locktrack import allow_wait, make_lock
 from ..core.errors import NotLeaderError, TimeoutError_
 from ..runtime import faults
-from . import statehash
 
 # propose_and_wait parks on a node's commit_cv (built on the raft lock)
 # while the HA assign path still holds the leader-local assignlocal lock
@@ -39,6 +42,7 @@ from . import statehash
 # notified from the event-loop thread (_apply_committed / _step_down),
 # which never acquires assignlocal; the parked hold only serializes
 # same-colony assigns, which is assignlocal's whole job.
+allow_wait("raft", "assignlocal")
 
 
 def _node_seed(node_id: str) -> int:
@@ -111,7 +115,7 @@ class RaftNode:
         self._last_heartbeat_ms = 0
         self._timeout_ms = self._new_timeout()
         self._peer_contact_ms: dict[str, int] = {}
-        self.lock = threading.RLock()
+        self.lock = make_lock(f"raft:{node_id}")
         # Notified on every commit apply and on step-down, so a
         # propose_and_wait parks here instead of polling (see
         # ThreadedRaftCluster.propose_and_wait).
@@ -514,7 +518,7 @@ class ThreadedRaftCluster:
         self.tick_ms = tick_ms
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self._lock = threading.RLock()
+        self._lock = make_lock("cluster")
 
     @property
     def nodes(self) -> dict[str, RaftNode]:
@@ -540,6 +544,7 @@ class ThreadedRaftCluster:
         if self._thread is not None:
             self._thread.join(timeout=2)
 
+    @no_locks_held("shard", "cfs", "glock", "dbcolony", "sqlite")
     def propose_and_wait(
         self, nid: str, entry: dict, timeout: float = COMMIT_TIMEOUT_S
     ) -> int:
@@ -550,11 +555,11 @@ class ThreadedRaftCluster:
         ``_step_down`` when leadership is lost — so commit latency is one
         notification away instead of a ``tick_ms/2`` polling round-trip.
 
-        Contract (no locks held): never entered holding a database lock
-        — the commit is applied on the event-loop thread, which needs
-        those same locks (the reference's first deadlock). The
-        leader-local ``assignlocal`` lock is the one lock legitimately
-        held across this wait.
+        Contract: never entered holding a database lock — the commit is
+        applied on the event-loop thread, which needs those same locks
+        (the reference's first deadlock). The leader-local
+        ``assignlocal`` lock is the one lock legitimately held across
+        this wait.
         """
         node = self.nodes[nid]
         with self._lock:

@@ -22,8 +22,11 @@ answers from the database. What it keeps of the reference:
 
 A server with no hooks set is the standalone broker: always the leader,
 assign and close applied under the colony lock. The reference's
-unverified in-process path and its analysis hooks are left out; its
-lock-order contracts stand as docstring lines.
+unverified in-process path is left out. Its analysis hooks are kept
+(``analysis/``): the locks come from ``make_lock``, each ``_require_*``
+records an auth fact inside ``handle``'s request scope, and the blocking
+and state-changing internals declare ``@no_locks_held`` and
+``@requires_auth``.
 """
 
 from __future__ import annotations
@@ -34,6 +37,10 @@ import secrets
 import threading
 from typing import Any, Callable
 
+from ..analysis import authtrack
+from ..analysis.authtrack import requires_auth
+from ..analysis.contracts import no_locks_held
+from ..analysis.locktrack import make_lock
 from ..core import blobstore, idempotency
 from ..core.crypto import Crypto
 from ..core.errors import (
@@ -105,8 +112,8 @@ class _QueueSignal:
 
     __slots__ = ("cv", "version")
 
-    def __init__(self) -> None:
-        self.cv = threading.Condition(threading.Lock())
+    def __init__(self, key: tuple[str, str]) -> None:
+        self.cv = threading.Condition(make_lock(f"queuecv:{key[0]}:{key[1]}"))
         self.version = 0
 
 
@@ -125,7 +132,7 @@ class ColoniesServer:
         self.serverid = serverid
         self.db = db if db is not None else MemoryDatabase()
         self._signals: dict[tuple[str, str], _QueueSignal] = {}
-        self._signals_guard = threading.Lock()
+        self._signals_guard = make_lock("signals")
         # Leader-local per-colony assign serialization for the HA path (the
         # shared db.colony_lock cannot be held across a Raft proposal: the
         # commit is applied on another thread that needs that same lock).
@@ -191,9 +198,13 @@ class ColoniesServer:
                 cached = self.db.dedup_get(dedup_key)
                 if cached is not None:
                     return {"result": cached, "replayed": True}
+            # Under REPRO_AUTH_CHECK=1 the scope arms the database guards:
+            # colony-scoped access inside this dispatch requires a recorded
+            # auth fact (see analysis/authtrack.py).
             token = idempotency.set_current(msgid)
             try:
-                result = handler(identity, payload)
+                with authtrack.request_scope():
+                    result = handler(identity, payload)
             finally:
                 idempotency.reset_current(token)
             # successes only: a handler raises before it mutates anything;
@@ -211,30 +222,38 @@ class ColoniesServer:
             return {"error": str(e), "status": e.status}
 
     # ------------------------------------------------------------ auth utils
+    # Each check records its verified (identity, colony, role) as an auth
+    # fact for the current request (a no-op unless REPRO_AUTH_CHECK=1);
+    # colony-scoped database access without a matching fact then raises.
     def _require_server_owner(self, identity: str) -> None:
         if identity != self.serverid:
             raise AuthError("requires server owner")
+        authtrack.record(identity, authtrack.ANY_COLONY, "server")
 
     def _require_colony_owner(self, identity: str, colonyname: str) -> Colony:
         colony = self.db.get_colony(colonyname)
         if identity != colony.colonyid:
             raise AuthError("requires colony owner")
+        authtrack.record(identity, colonyname, "owner")
         return colony
 
     def _require_member(self, identity: str, colonyname: str) -> Executor | None:
         """Approved executor OR registered user OR colony owner."""
         colony = self.db.get_colony(colonyname)
         if identity == colony.colonyid:
+            authtrack.record(identity, colonyname, "owner")
             return None
         try:
             ex = self.db.get_executor(identity)
             if ex.colonyname == colonyname and ex.state == "approved":
+                authtrack.record(identity, colonyname, "executor")
                 self.db.touch_executor(identity, now_ns())
                 return ex
         except NotFoundError:
             pass
         user = self.db.user_get(identity)
         if user is not None and user.get("colonyname") == colonyname:
+            authtrack.record(identity, colonyname, "member")
             return None
         raise AuthError("identity is not a member of the colony")
 
@@ -247,6 +266,7 @@ class ColoniesServer:
             raise AuthError("executor belongs to another colony")
         if ex.state != "approved":
             raise AuthError(f"executor not approved (state={ex.state})")
+        authtrack.record(identity, colonyname, "executor")
         self.db.touch_executor(identity, now_ns())
         return ex
 
@@ -269,17 +289,17 @@ class ColoniesServer:
         self.db.add_executor(ex)
         return ex.to_dict()
 
-    def _set_executor_state(self, identity: str, payload: dict, state: str) -> dict:
+    def _h_approve_executor(self, identity: str, payload: dict) -> dict:
         ex = self.db.get_executor(payload["executorid"])
         self._require_colony_owner(identity, ex.colonyname)
-        self.db.set_executor_state(ex.executorid, state)
-        return {"executorid": ex.executorid, "state": state}
-
-    def _h_approve_executor(self, identity: str, payload: dict) -> dict:
-        return self._set_executor_state(identity, payload, "approved")
+        self.db.set_executor_state(ex.executorid, "approved")
+        return {"executorid": ex.executorid, "state": "approved"}
 
     def _h_reject_executor(self, identity: str, payload: dict) -> dict:
-        return self._set_executor_state(identity, payload, "rejected")
+        ex = self.db.get_executor(payload["executorid"])
+        self._require_colony_owner(identity, ex.colonyname)
+        self.db.set_executor_state(ex.executorid, "rejected")
+        return {"executorid": ex.executorid, "state": "rejected"}
 
     def _h_remove_executor(self, identity: str, payload: dict) -> dict:
         ex = self.db.get_executor(payload["executorid"])
@@ -344,6 +364,7 @@ class ColoniesServer:
         self._notify_queue([self._queue_key(p) for p in procs if not p.wait_for_parents])
         return {"workflowid": procs[0].workflowid, "processes": [p.to_dict() for p in procs]}
 
+    @requires_auth("member")
     def submit_workflow_processes(self, wf: WorkflowSpec) -> list[Process]:
         """DAG expansion (paper §3.4.2): one process per node, linked by ids."""
         procs = expand_workflow(wf)
@@ -361,12 +382,13 @@ class ColoniesServer:
             raise TimeoutError_("no process assigned within timeout")
         return p.to_dict()
 
+    @no_locks_held()
     def assign(self, colony: str, ex: Executor, timeout: float) -> Process | None:
         """Long-poll assignment (paper §3.3: the server *hangs* the request):
         the request parks on its (colony, executortype) signal and is woken
         when that queue gains work. An HA replica answers ``NotLeaderError``
         unless it leads, and re-checks that every ``HA_LEADER_RECHECK_S``
-        while it waits. Contract: entered holding no lock."""
+        while it waits."""
         deadline = now_ns() + int(timeout * 1e9)
         sig = self._signal((colony, ex.executortype))
         while not self._stop.is_set():
@@ -392,7 +414,7 @@ class ColoniesServer:
         with self._signals_guard:
             lk = self._local_assign_locks.get(colony)
             if lk is None:
-                lk = self._local_assign_locks[colony] = threading.RLock()
+                lk = self._local_assign_locks[colony] = make_lock(f"assignlocal:{colony}")
             return lk
 
     def _try_assign_once(self, colony: str, ex: Executor) -> Process | None:
@@ -431,6 +453,7 @@ class ColoniesServer:
                 return self.db.get_process(p.processid)
         return None
 
+    @requires_auth("executor")
     def apply_assign(self, op: dict) -> None:
         """State-machine apply of an assign op (also run by the Raft commit):
         a compare-and-swap on ``state == WAITING`` under the colony lock,
@@ -487,6 +510,7 @@ class ColoniesServer:
             self.apply_close(op)
         return self.db.get_process(pid).to_dict()
 
+    @requires_auth("executor")
     def apply_close(self, op: dict) -> None:
         """State-machine apply of a close op (also run by the Raft commit):
         the wall clock arrives leader-stamped as ``op["ts"]``, and the
@@ -496,6 +520,7 @@ class ColoniesServer:
         self.close_process(p, bool(op.get("successful", True)), op.get("out", []),
                            op.get("errors", []), op["executorid"], ts=op["ts"])
 
+    @requires_auth("executor")
     def close_process(self, p: Process, succeeded: bool, output: list[Any], errors: list[str],
                       expected_executorid: str, *, ts: int) -> None:
         """Close and propagate through the DAG (paper §3.4.2). The process
@@ -597,6 +622,7 @@ class ColoniesServer:
         return stats
 
     # -- failsafe (paper §3.4) --------------------------------------------------
+    @no_locks_held()
     def failsafe_scan(self) -> dict:
         """One failsafe pass. A running process past its ``maxexectime``
         goes back to the queue with ``retries + 1`` (or fails once its
@@ -690,7 +716,7 @@ class ColoniesServer:
         with self._signals_guard:
             sig = self._signals.get(key)
             if sig is None:
-                sig = self._signals[key] = _QueueSignal()
+                sig = self._signals[key] = _QueueSignal(key)
             return sig
 
     def _notify_queue(self, keys: list[tuple[str, str]] | None = None) -> None:

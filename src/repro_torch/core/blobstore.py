@@ -1,8 +1,8 @@
 """Sharded, self-healing blob plane for CFS (STORAGE.md).
 
 A copy of the reference's ``repro/core/blobstore.py``, stdlib only; its
-locks are plain ``threading.RLock``s, never held across a child-storage
-call.
+locks (``blobshard:``, from ``analysis.locktrack.make_lock``) are never
+held across a child-storage call.
 
 The paper keeps CFS bytes in S3/IPFS-style distributed stores while the
 Colonies database holds only metadata (§3.4.5). :class:`ShardedStorage`
@@ -45,9 +45,9 @@ from __future__ import annotations
 
 import bisect
 import hashlib
-import threading
 import weakref
 
+from ..analysis.locktrack import make_lock
 from ..runtime import faults
 from .errors import ConflictError, NotFoundError, TransportError
 from .fs import Storage, checksum
@@ -77,7 +77,7 @@ _COUNTERS = (
 
 # Live stores of this process, for colonystats aggregation. A broker in a
 # process of its own (over HTTP) holds none: it counts zero stores.
-_registry_lock = threading.RLock()
+_registry_lock = make_lock("blobshard:registry")
 _registry: list[weakref.ref] = []
 _seq = 0
 
@@ -149,7 +149,7 @@ class ShardedStorage(Storage):
         # quarantine log only — never held across a child put/get (the
         # children take their own `storage` locks; see CONCURRENCY.md).
         self._seq = _register(self)
-        self._stats_lock = threading.RLock()
+        self._stats_lock = make_lock(f"blobshard:{self._seq}")
         self._per_shard = [dict.fromkeys(_COUNTERS, 0) for _ in self.shards]
         self.quarantine_log: list[tuple[int, str]] = []  # (shard, key)
 

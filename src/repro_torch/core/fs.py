@@ -23,10 +23,10 @@ from __future__ import annotations
 import hashlib
 import os
 import secrets
-import threading
 import time
 from typing import Any, Callable
 
+from ..analysis.locktrack import make_lock
 from .errors import ConflictError, NotFoundError, TransportError, ValidationError
 from .retry import RetryPolicy
 
@@ -90,7 +90,7 @@ class MemoryStorage(Storage):
     def __init__(self) -> None:
         self._blobs: dict[str, bytes] = {}
         self._quarantined: dict[str, bytes] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("storage")
 
     def put(self, data: bytes) -> str:
         key = checksum(data)

@@ -2,8 +2,8 @@
 
 A copy of the reference's ``repro/runtime/faults.py``: the same sites,
 rules, actions and seeded schedule. Stdlib only, so the broker process
-(which loads no torch) can import it; its lock is a plain
-``threading.RLock``, a leaf lock nothing is called under.
+(which loads no torch) can import it; its lock (``faults``, from
+``analysis.locktrack.make_lock``) is one that nothing is called under.
 
 The paper's failsafe story (§3.4) assumes executors die at any moment;
 this module lets tests make the *rest* of the path — transports, the
@@ -60,6 +60,8 @@ import threading
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from ..analysis.locktrack import make_lock
 
 RAISING_ACTIONS = frozenset({"drop", "reset", "crash"})
 ACTIONS = RAISING_ACTIONS | {"delay", "duplicate"}
@@ -141,7 +143,7 @@ class FaultPlan:
         self.log: list[tuple[str, str, dict]] = []
         # Leaf lock: only dict/list ops are performed under it, and the
         # delay sleep happens after release (see CONCURRENCY.md).
-        self._lock = threading.RLock()
+        self._lock = make_lock("faults")
 
     def add(self, rule: FaultRule) -> "FaultPlan":
         self.rules.append(rule)

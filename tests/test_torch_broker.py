@@ -291,6 +291,14 @@ def test_port_broker_process_over_http():
         assert status == 403 and "error" in body
         assert _post(port, b"{not json")[0] == 400
         assert broker.alive()
+        # the process runs under the port's detectors and reports them
+        rep = broker.report("[broker]", ("shard", "glock"))
+        assert rep["lock_check"] and rep["auth_check"]
+        assert rep["violations"] == [] and rep["contract_errors"] == []
+        assert rep["holds"]["glock"][0] > 0 and rep["failsafe_errors"] == 0
+        again = broker.report("[broker]")  # holds since the last report, and in all
+        assert again["holds_total"]["glock"][0] == (rep["holds_total"]["glock"][0]
+                                                    + again["holds"].get("glock", [0])[0])
     finally:
         broker.close()
     assert not broker.alive()

@@ -213,7 +213,7 @@ def test_broker_process_killed_and_restarted_over_its_file(tmp_path):
         client.assign("dev", 1.0, exec_prv)
         queued = client.submit(_spec("worker"), colony)
         port, before = broker.port, client.stats("dev", colony)
-        broker.kill()
+        broker.kill("[durable]", chip_smoke.SQLITE_FAMILIES)  # reads the detectors' report
         assert not broker.alive()
         restart_s = broker.restart()
         assert broker.alive() and broker.port == port and 0 < restart_s < 30
@@ -224,6 +224,8 @@ def test_broker_process_killed_and_restarted_over_its_file(tmp_path):
         assert client.assign("dev", 1.0, exec_prv)["processid"] == queued["processid"]
         client.close(running["processid"], ["ok"], exec_prv)
         assert client.stats("dev", colony)["successful"] == 1
+        rep = broker.report("[durable]", ("sqlite", "dbcolony"))
+        assert rep["violations"] == [] and rep["holds_total"]["sqlite"][0] > 0
     finally:
         broker.close()
     assert not broker.alive()

@@ -16,7 +16,8 @@ import time
 import pytest
 
 from repro.core.cluster import HAColonyCluster as RefHAColonyCluster
-from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, SqliteDatabase, statehash
+from repro_torch.analysis import statehash
+from repro_torch.broker import ColoniesHttpServer, HAColonyCluster, SqliteDatabase
 from repro_torch.core import errors
 from repro_torch.core.client import Colonies, InProcTransport
 from repro_torch.core.crypto import Crypto
@@ -249,6 +250,9 @@ def test_replicated_broker_process_loads_no_torch_and_takes_harness_commands():
         assert st["failover"]["killed"] == before and st["failover"]["elected_s"] > 0
         ha.command(f"revive {before}")
         assert ha.alive()
+        rep = ha.report("[ha]", ("shard", "glock", "raft", "cluster"))
+        assert rep["lock_check"] and rep["auth_check"] and rep["repl_check"]
+        assert rep["violations"] == [] and rep["contract_errors"] == []
     finally:
         ha.close()
     assert not ha.alive()
