@@ -223,6 +223,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from repro_torch import trace  # noqa: E402
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -843,6 +844,20 @@ def set_gates(params: dict, value: float) -> int:
     return n
 
 
+def served_since(before: dict[str, int]) -> dict[str, int]:
+    """What the port's batch handlers counted since ``before`` (an earlier
+    ``trace.snapshot()["counters"]``): requests, batches, asked tokens and
+    decode slots."""
+    got = trace.counters_since(before)
+    return {k: got.get(f"serve.{k}", 0)
+            for k in ("requests", "batches", "asked_tokens", "decode_slots")}
+
+
+def prefills() -> int:
+    """The engines' prefills so far (``engine.prefill`` spans)."""
+    return trace.snapshot()["spans"].get("engine.prefill", {}).get("count", 0)
+
+
 def make_server(engine, memories: dict[str, torch.Tensor] | None):
     """``serve(requests, batch_size)`` -> (tokens per request, wall seconds
     per batch after the device is done): through the generator's batch
@@ -913,18 +928,18 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
 
     runs = []
     for run in range(2):
-        batches_before = engine.stats["batches"]
+        prefills_before = prefills()
         if run == 0:
             for mod in mods.values():
                 mod.launches = 0
         outs, seconds = serve(requests, 4)
         if run == 0:
             counts = {name: mod.launches for name, mod in mods.items()}
-            prefills = engine.stats["batches"] - batches_before
-            want = {name: per_prefill.get(name, 0) * prefills for name in mods}
-            print(f"{tag} kernel launches {counts} over {prefills} prefills "
+            n_prefills = prefills() - prefills_before
+            want = {name: per_prefill.get(name, 0) * n_prefills for name in mods}
+            print(f"{tag} kernel launches {counts} over {n_prefills} prefills "
                   f"({cfg.num_layers} layers; want {want})")
-            check(prefills > 0 and counts == want,
+            check(n_prefills > 0 and counts == want,
                   f"kernel launches {counts} on the {arch} path, want {want}")
         for o in outs:
             check(len(o) == NEW_TOKENS and all(0 <= t < cfg.vocab_size for t in o),
@@ -3004,6 +3019,7 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
         lease = max(5, math.ceil(3 * attempt_s))
         print(f"{tag} hand-off train (4 steps, 4 checkpoints): {done['out'][0]}; attempt "
               f"{attempt_s:.3f} s from assign to close, so DAG 1's train lease is {lease} s")
+        before = trace.snapshot()["counters"]
         server = start(tx.ServeExecutor(client, COLONY, "h100-serve-handoff", "h100-serve",
                                         storage, arch="stablelm-3b", max_len=64, run="handoff",
                                         **kw))
@@ -3017,7 +3033,8 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
         served = [infc.wait(r, timeout=120) for r in rids]
         server.stop()
         handoff = {name: mod.launches for name, mod in mods.items()}
-        check(server.engine.stats["batches"] == 1, f"hand-off batches {server.engine.stats}")
+        check(served_since(before)["batches"] == 1,
+              f"hand-off batches {served_since(before)}")
         direct = server.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
                                         max_new_tokens=8).tolist()
         print(f"{tag} served from the restored checkpoint through a generator: {served[0]} ...; "
@@ -3138,6 +3155,7 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
         return out
 
     engine.generate = timed_generate
+    before = trace.snapshot()["counters"]
     try:
         ex.start(poll_timeout=0.2)
         g = client.add_generator({"colonyname": COLONY, "name": "serve-full", "queuesize": 4,
@@ -3168,11 +3186,12 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
     batches.sort(key=lambda q: q["submissiontime"])
     want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
     print(f"{tag} {len(requests)} requests in {len(batches)} batches of "
-          f"{[len(q['spec']['kwargs']['packed_args']) for q in batches]}; engine stats "
-          f"{engine.stats}; launches {counts} (want {want})")
+          f"{[len(q['spec']['kwargs']['packed_args']) for q in batches]}; served "
+          f"{served_since(before)}; launches {counts} (want {want})")
     sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
-    check(sizes == [4, 4] and engine.stats["batches"] == 2 and engine.stats["requests"] == 8,
-          f"batches of {sizes}, engine stats {engine.stats}")
+    served = served_since(before)
+    check(sizes == [4, 4] and served["batches"] == 2 and served["requests"] == 8,
+          f"batches of {sizes}, served {served}")
     check(counts == want, f"launches {counts}, want {want}")
     prefill_s = []
     for i, q in enumerate(batches):
@@ -3375,6 +3394,7 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         check(done["state"] == "successful" and done["retries"] == 0
               and done["out"][0]["final_step"] == 3 and trainer.processed == 1
               and trainer.failed == 0, f"train: {done['state']} {done['errors'] or done['out']}")
+        before = trace.snapshot()["counters"]
         server = start(tx.ServeExecutor(client, COLONY, "h100-serve-durable", "h100-serve",
                                         storage, arch="stablelm-3b", max_len=64, run="durable",
                                         **kw))
@@ -3394,11 +3414,12 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         gen = [e for e in client.get_generators(COLONY, prv)
                if e["generatorid"] == g["generatorid"]][0]
         print(f"{tag} SIGKILL and restart between the 2nd and the 3rd pack in {restart_s[1]:.3f} "
-              f"s; the generator ran {gen['runs']} time(s), {gen['pending']} pending; engine "
-              f"{server.engine.stats}")
-        check(gen["runs"] == 1 and gen["pending"] == 0 and server.engine.stats["batches"] == 1
-              and server.engine.stats["requests"] == 4 and server.processed == 1,
-              f"generator {gen}, engine {server.engine.stats}, processed {server.processed}")
+              f"s; the generator ran {gen['runs']} time(s), {gen['pending']} pending; served "
+              f"{served_since(before)}")
+        counted = served_since(before)
+        check(gen["runs"] == 1 and gen["pending"] == 0 and counted["batches"] == 1
+              and counted["requests"] == 4 and server.processed == 1,
+              f"generator {gen}, served {counted}, processed {server.processed}")
         direct = server.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
                                         max_new_tokens=8).tolist()
         print(f"{tag} served from the restored checkpoint: {served[0]} ...; identical to the "
@@ -3440,6 +3461,7 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
     engine, cfg = ex.engine, ex.engine.cfg
     check(cfg.num_layers == 32 and cfg.param_dtype == "float32",
           f"{cfg.num_layers} layers, {cfg.param_dtype}")
+    before = trace.snapshot()["counters"]
     try:
         ex.start(poll_timeout=0.2)
         g = client.add_generator({"colonyname": COLONY, "name": "durable-serve-full",
@@ -3467,9 +3489,10 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
         ex.stop()
     want = {name: 32 * 2 if name == "flash_attention" else 0 for name in mods}
     print(f"{tag} 8 requests in 2 batches, SIGKILL and restart between them in {restart_s:.3f} "
-          f"s; engine stats {engine.stats}; launches {counts} (want {want})")
-    check(engine.stats["batches"] == 2 and engine.stats["requests"] == 8 and ex.processed == 2,
-          f"engine stats {engine.stats}, processed {ex.processed}")
+          f"s; served {served_since(before)}; launches {counts} (want {want})")
+    served = served_since(before)
+    check(served["batches"] == 2 and served["requests"] == 8 and ex.processed == 2,
+          f"served {served}, processed {ex.processed}")
     check(counts == want, f"launches {counts}, want {want}")
     for batch, got in zip(batches, served):
         direct = engine.generate(pad_prompts(batch), max_new_tokens=NEW_TOKENS).tolist()
@@ -3957,6 +3980,7 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
 
     monkey = ChaosMonkey(kill, spawn, interval=(0.5, 2.0), seed=HA_SEED)
     engine.generate = timed_generate
+    counted = trace.snapshot()["counters"]
     try:
         for _ in range(3):
             spawn()
@@ -4004,11 +4028,12 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
     batches.sort(key=lambda q: q["submissiontime"])
     sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
     want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
-    print(f"{tag} {len(requests)} requests in {len(batches)} batches of {sizes}; engine stats "
-          f"{engine.stats}; serve executor processed {ex.processed}, failed {ex.failed}; "
+    served = served_since(counted)
+    print(f"{tag} {len(requests)} requests in {len(batches)} batches of {sizes}; served "
+          f"{served}; serve executor processed {ex.processed}, failed {ex.failed}; "
           f"launches {counts} (want {want}); leader replica {before} -> {after}")
-    check(sizes == [4, 4] and engine.stats["batches"] == 2 and ex.processed == 2
-          and ex.failed == 0, f"batches of {sizes}, {engine.stats}, processed {ex.processed}")
+    check(sizes == [4, 4] and served["batches"] == 2 and ex.processed == 2
+          and ex.failed == 0, f"batches of {sizes}, {served}, processed {ex.processed}")
     check(counts == want, f"launches {counts}, want {want}")
     check(after not in (None, f"n{before}"), f"the leader is {after} after killing {before}")
     for q in batches:
@@ -4143,12 +4168,12 @@ def phase_launch_serve() -> tuple[dict, dict]:
     sizes = [len(b) for b in batches]
     want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
     print(f"{tag} launch.serve {' '.join(LAUNCH_SERVE_ARGS)}: {cfg.num_layers} layers, d_model "
-          f"{cfg.d_model}, {cfg.param_dtype}; batches of {sizes}; engine stats {res['stats']}; "
+          f"{cfg.d_model}, {cfg.param_dtype}; batches of {sizes}; served {res['stats']}; "
           f"launches {counts} (want {want})")
     check(cfg.num_layers == 32 and cfg.d_model == 2560 and cfg.param_dtype == "float32",
           f"served {cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype}")
     check(sizes == [4, 4] and res["stats"]["batches"] == 2 and res["stats"]["requests"] == 8,
-          f"batches of {sizes}, engine stats {res['stats']}")
+          f"batches of {sizes}, served {res['stats']}")
     check(counts == want, f"launches {counts}, want {want}")
     reqs = {r["request_id"]: r for r in res["requests"]}
     for i, batch in enumerate(batches):

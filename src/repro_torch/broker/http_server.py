@@ -2,7 +2,9 @@
 reference's ``repro/core/http_transport.py`` (paper §3.3).
 
 ``POST /api`` takes a signed JSON envelope and answers with the server's
-reply, its error status as the HTTP status; ``GET /health`` answers
+reply, its error status as the HTTP status, and a W3C ``Server-Timing``
+header: the recovery of the signer (``recover``) and the rest of the
+request's handling (``handle``), in ms; ``GET /health`` answers
 ``{"status": "ok"}``. Each request runs on its own thread, so a hanging
 long-poll ``assign`` never blocks the others. Executors always dial the
 broker, never the reverse. A fault injected in the server's crash windows
@@ -14,6 +16,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..runtime import faults
@@ -37,8 +40,10 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, json.JSONDecodeError):
             self._reply(400, {"error": "malformed request", "status": 400})
             return
+        timing: dict[str, float] = {}
+        t0 = time.perf_counter()
         try:
-            resp = self.colonies.handle(envelope)  # may hang (long-poll)
+            resp = self.colonies.handle(envelope, timing)  # may hang (long-poll)
         except faults.FaultInjected:
             # Injected server crash window: die without replying, so the
             # client sees a reset connection, not a clean error body.
@@ -48,7 +53,11 @@ class _Handler(BaseHTTPRequestHandler):
             except OSError:
                 pass
             return
-        self._reply(int(resp.get("status", 200)) if "error" in resp else 200, resp)
+        recover = timing.get("recover")
+        metrics = [] if recover is None else [f"recover;dur={1e3 * recover:.3f}"]
+        metrics.append(f"handle;dur={1e3 * (time.perf_counter() - t0 - (recover or 0.0)):.3f}")
+        self._reply(int(resp.get("status", 200)) if "error" in resp else 200, resp,
+                    {"Server-Timing": ", ".join(metrics)})
 
     def do_GET(self) -> None:  # noqa: N802
         if self.path.rstrip("/") == "/health":
@@ -56,11 +65,13 @@ class _Handler(BaseHTTPRequestHandler):
         else:
             self.send_error(404)
 
-    def _reply(self, status: int, body: dict) -> None:
+    def _reply(self, status: int, body: dict, headers: dict[str, str] | None = None) -> None:
         data = json.dumps(body).encode()
         self.send_response(status)
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
+        for key, value in (headers or {}).items():
+            self.send_header(key, value)
         self.end_headers()
         self.wfile.write(data)
 

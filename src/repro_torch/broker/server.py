@@ -35,6 +35,7 @@ import json
 import logging
 import secrets
 import threading
+import time
 from typing import Any, Callable
 
 from ..analysis import authtrack
@@ -170,11 +171,15 @@ class ColoniesServer:
         self.failsafe_errors = 0
 
     # ------------------------------------------------------------------ RPC
-    def handle(self, envelope: dict) -> dict:
+    def handle(self, envelope: dict, timing: dict | None = None) -> dict:
         """Entry point for all transports: ``{"result": ...}`` or
-        ``{"error": ..., "status": ...}``."""
+        ``{"error": ..., "status": ...}``. ``timing``, where given, receives
+        the seconds the signer's recovery took (``recover``)."""
+        t0 = time.perf_counter()
         try:
             identity, ptype, payload = open_envelope(envelope)
+            if timing is not None:
+                timing["recover"] = time.perf_counter() - t0
             # Injected server death before dispatch: the request has no
             # effect and the transport sees a dead connection. The raise
             # (FaultInjected is a ConnectionError, not a ColoniesError)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import time
 from typing import Any
 
+from .. import trace
 from ..runtime import faults
 from . import idempotency
 from .errors import (
@@ -118,11 +119,15 @@ class Colonies:
             # One key per logical operation: transport retries of this
             # call all carry the same msgid, so the server dedups them.
             msgid = new_id()
-        env = sign_envelope(payloadtype, payload, prvkey, msgid=msgid)
-        if timeout is None:
-            resp = self.transport.send(env)
-        else:
-            resp = self.transport.send(env, timeout=timeout)
+        # the round trip, the signature inside it; an HTTP transport adds
+        # the broker's own share, read from the reply
+        with trace.span(f"rpc.{payloadtype}"):
+            with trace.span("rpc.sign"):
+                env = sign_envelope(payloadtype, payload, prvkey, msgid=msgid)
+            if timeout is None:
+                resp = self.transport.send(env)
+            else:
+                resp = self.transport.send(env, timeout=timeout)
         if "error" in resp:
             err_cls = _ERROR_TYPES.get(int(resp.get("status", 500)), ColoniesError)
             raise err_cls(resp["error"])

@@ -1,6 +1,7 @@
 """Executor microservice base (paper §3.1, §4.1 Listings 3–4).
 
-A copy of the reference's ``repro/core/executor.py``.
+A copy of the reference's ``repro/core/executor.py``, with the spans
+``executor.assign`` (the long poll) and ``executor.close`` (``trace.py``).
 
 An executor is a small, independently deployable service that:
   1. generates an identity and is registered+approved by the colony owner,
@@ -24,6 +25,7 @@ import zlib
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
+from .. import trace
 from .client import Colonies
 from .crypto import Crypto
 from .errors import (
@@ -140,7 +142,8 @@ class ExecutorBase:
     def step(self, timeout: float = 1.0) -> bool:
         """One assign+execute+close cycle; returns True if a process ran."""
         try:
-            pd = self.client.assign(self.colonyname, timeout, self.prvkey)
+            with trace.span("executor.assign"):  # the long poll
+                pd = self.client.assign(self.colonyname, timeout, self.prvkey)
         except (TimeoutError_, NotLeaderError):
             return False
         process = Process.from_dict(pd)
@@ -208,10 +211,11 @@ class ExecutorBase:
         False = journal for another try after ``pc.next_try``."""
         pc.attempts += 1
         try:
-            if pc.successful:
-                self.client.close(pc.processid, pc.out, self.prvkey, msgid=pc.msgid)
-            else:
-                self.client.fail(pc.processid, pc.errors, self.prvkey, msgid=pc.msgid)
+            with trace.span("executor.close"):
+                if pc.successful:
+                    self.client.close(pc.processid, pc.out, self.prvkey, msgid=pc.msgid)
+                else:
+                    self.client.fail(pc.processid, pc.errors, self.prvkey, msgid=pc.msgid)
         except ConflictError:
             # Lost the lease (failsafe reset while we were computing) —
             # the paper's expected behaviour; drop the result silently.

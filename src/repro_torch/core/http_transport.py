@@ -4,11 +4,12 @@ A copy of the client class ``HttpTransport`` of the reference's
 ``repro/core/http_transport.py``, with its client-side fault sites
 (``transport.send``, ``transport.recv``, and the ``"duplicate"`` action
 that delivers a request twice), plus ``health()`` for the broker's
-``GET /health``. The broker hangs
-``assign`` requests (long-poll) until a process matches or the timer
-expires; executors always dial the broker, never the reverse, so they
-can live behind firewalls/NATs exactly as the paper argues. The server
-is the broker's and is not copied.
+``GET /health``; the broker's ``Server-Timing`` header becomes the spans
+``broker.recover`` and ``broker.handle`` of the RPC (``trace.py``). The
+broker hangs ``assign`` requests (long-poll) until a process matches or
+the timer expires; executors always dial the broker, never the reverse,
+so they can live behind firewalls/NATs exactly as the paper argues. The
+server is the broker's and is not copied.
 
 Stdlib only: urllib.
 """
@@ -17,11 +18,40 @@ from __future__ import annotations
 
 import http.client
 import json
+import time
 import urllib.error
 import urllib.request
 
+from .. import trace
 from ..runtime import faults
 from .retry import RetryPolicy, send_with_retry
+
+
+def server_timing(header: str | None) -> dict[str, float]:
+    """Seconds by metric name of a W3C ``Server-Timing`` header
+    (``recover;dur=47.5, handle;dur=3.1``, durations in ms)."""
+    out: dict[str, float] = {}
+    for metric in (header or "").split(","):
+        name, *params = (p.strip() for p in metric.split(";"))
+        for param in params:
+            key, _, value = param.partition("=")
+            if name and key.strip() == "dur":
+                try:
+                    out[name] = float(value) / 1e3
+                except ValueError:
+                    pass
+    return out
+
+
+def _record_broker(headers, sent: float) -> None:
+    """The broker's recovery of the signer and its handler, from a reply's
+    ``Server-Timing``, as spans of the current RPC placed from the send."""
+    timing = server_timing(headers.get("Server-Timing") if headers is not None else None)
+    start = sent
+    for name in ("recover", "handle"):
+        if name in timing:
+            trace.record(f"broker.{name}", timing[name], start)
+            start += timing[name]
 
 
 class HttpTransport:
@@ -70,13 +100,19 @@ class HttpTransport:
             )
             try:
                 action = faults.hit("transport.send", payloadtype=ptype)
+                sent = time.time()
                 with urllib.request.urlopen(req, timeout=timeout) as resp:
                     body = json.loads(resp.read())
+                    headers = resp.headers
                 if action == "duplicate":  # at-least-once delivery: send twice
+                    sent = time.time()
                     with urllib.request.urlopen(req, timeout=timeout) as resp:
                         body = json.loads(resp.read())
+                        headers = resp.headers
                 faults.hit("transport.recv", payloadtype=ptype)
+                _record_broker(headers, sent)
             except urllib.error.HTTPError as e:
+                _record_broker(e.headers, sent)
                 try:
                     body = json.loads(e.read())
                 except (ValueError, json.JSONDecodeError):

@@ -45,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from .. import trace
 from ..broker import standalone_server
 from ..configs import get_config
 from ..core import Colonies, Crypto, InProcTransport
@@ -121,11 +122,13 @@ def _wait_fired(client: Colonies, n: int, prv: str) -> list[dict]:
 
 def main(argv: list[str] | None = None) -> dict:
     """Serve ``--requests`` prompts through the broker and print each
-    request's id, prompt length and tokens, then the engine's stats and
-    the wall time. Returns what it printed (``requests``: id, prompt and
-    tokens; ``batches``: the request ids of each ``generate_batch`` in the
-    order the broker took them; ``stats``; ``wall_s``) and the ``engine``
-    it served with, for callers that check the tokens against it."""
+    request's id, prompt length and tokens, then what the batch handler
+    counted (requests, batches, asked tokens and decode slots, from the
+    ``serve.*`` counters of ``trace.py``) and the wall time. Returns what
+    it printed (``requests``: id, prompt and tokens; ``batches``: the
+    request ids of each ``generate_batch`` in the order the broker took
+    them; ``stats``: the counts; ``wall_s``) and the ``engine`` it served
+    with, for callers that check the tokens against it."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b")
     ap.add_argument("--variant", default="full",
@@ -153,6 +156,7 @@ def main(argv: list[str] | None = None) -> dict:
     server = standalone_server(Crypto.id(server_prv))
     server.start_background(failsafe_interval=0.1)
     worker = None
+    before = trace.snapshot()["counters"]
     try:
         client = Colonies(InProcTransport([server]))
         client.add_colony(COLONY, Crypto.id(colony_prv), server_prv)
@@ -195,8 +199,11 @@ def main(argv: list[str] | None = None) -> dict:
            for rid, r, t in zip(rids, requests, tokens)]
     for o in out:
         print(o["request_id"], len(o["prompt"]), o["tokens"])
-    st = dict(worker.engine.stats)
-    print(f"{st['requests']} requests in {st['batches']} batches, {st['tokens']} tokens, "
+    served = trace.counters_since(before)
+    st = {k: served.get(f"serve.{k}", 0)
+          for k in ("requests", "batches", "asked_tokens", "decode_slots")}
+    print(f"{st['requests']} requests in {st['batches']} batches, {st['asked_tokens']} tokens "
+          f"asked in {st['decode_slots']} decode slots, "
           f"{wall_s:.3f}s on {worker.engine.device} (batches of {[len(b) for b in batches]})")
     return {"requests": out, "batches": batches, "stats": st, "wall_s": wall_s,
             "engine": worker.engine}

@@ -46,6 +46,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from .. import trace
 from ..configs.base import ModelConfig, MoEConfig
 from ..tree import map_leaves
 from . import attention as attn
@@ -469,36 +470,42 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, mem_len: int = 0)
 def _block_decode(bdef: BlockDef, bp: dict, x: torch.Tensor, cache: dict,
                   pos: int | torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One token through one block. ``cache`` holds views of this layer's
-    slice of the stacked cache; every mixer writes into them in place."""
+    slice of the stacked cache; every mixer writes into them in place. The
+    token mixer runs under the device span ``decode.mixer``, the MLP under
+    ``decode.mlp`` (``trace.py``)."""
     h = apply_norm(x, bp["norm1"], cfg.norm, cfg.norm_eps)
-    if bdef.mixer in ("attn", "attn_x"):
-        out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos, cfg)
-    elif bdef.mixer == "xattn":
-        out = _xattn_decode(bp["mixer"], h, cache)
-    elif bdef.mixer == "mla":
-        out, _ = mla_mod.mla_decode(
-            bp["mixer"], h, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}, pos, cfg)
-    elif bdef.mixer == "rwkv":
-        out, _ = rwkv_mod.rwkv_time_mix_decode(
-            bp["mixer"], h, {"wkv": cache["wkv"], "x_prev": cache["x_prev"]}, cfg)
-    elif bdef.mixer == "mamba":
-        out, _ = ssm_mod.mamba_decode(bp["mixer"], h, {"h": cache["h"], "conv": cache["conv"]}, cfg)
-    else:
-        raise ValueError(bdef.mixer)
+    with trace.device_span("decode.mixer"):
+        if bdef.mixer in ("attn", "attn_x"):
+            out, _ = attn.attn_decode(bp["mixer"], h, {"k": cache["k"], "v": cache["v"]}, pos,
+                                      cfg)
+        elif bdef.mixer == "xattn":
+            out = _xattn_decode(bp["mixer"], h, cache)
+        elif bdef.mixer == "mla":
+            out, _ = mla_mod.mla_decode(
+                bp["mixer"], h, {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"]}, pos, cfg)
+        elif bdef.mixer == "rwkv":
+            out, _ = rwkv_mod.rwkv_time_mix_decode(
+                bp["mixer"], h, {"wkv": cache["wkv"], "x_prev": cache["x_prev"]}, cfg)
+        elif bdef.mixer == "mamba":
+            out, _ = ssm_mod.mamba_decode(bp["mixer"], h, {"h": cache["h"], "conv": cache["conv"]},
+                                          cfg)
+        else:
+            raise ValueError(bdef.mixer)
     x = _residual(x + out, cfg)
     if bdef.mixer == "attn_x":
         h = apply_norm(x, bp["norm_x"], cfg.norm, cfg.norm_eps)
         x = _residual(x + _xattn_decode(bp["xattn"], h, cache), cfg)
     h = apply_norm(x, bp["norm2"], cfg.norm, cfg.norm_eps)
-    if bdef.mlp == "dense":
-        return x + _mlp_fwd(bp["mlp"], h, cfg)
-    if bdef.mlp == "moe":  # one token per sequence: a group of B tokens (C16)
-        out, _ = moe_mod.moe_fwd(bp["mlp"], h, cfg)
+    with trace.device_span("decode.mlp"):
+        if bdef.mlp == "dense":
+            return x + _mlp_fwd(bp["mlp"], h, cfg)
+        if bdef.mlp == "moe":  # one token per sequence: a group of B tokens (C16)
+            out, _ = moe_mod.moe_fwd(bp["mlp"], h, cfg)
+            return x + out
+        if bdef.mlp != "rwkv_cm":
+            raise ValueError(bdef.mlp)
+        out, _ = rwkv_mod.rwkv_channel_mix_decode(bp["mlp"], h, cache["cm"], cfg)
         return x + out
-    if bdef.mlp != "rwkv_cm":
-        raise ValueError(bdef.mlp)
-    out, _ = rwkv_mod.rwkv_channel_mix_decode(bp["mlp"], h, cache["cm"], cfg)
-    return x + out
 
 
 def _xattn_decode(params: dict, h: torch.Tensor, cache: dict) -> torch.Tensor:

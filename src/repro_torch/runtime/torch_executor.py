@@ -29,6 +29,7 @@ from typing import Any
 import torch
 
 from .. import device as _device
+from .. import trace
 from ..core.client import Colonies
 from ..core.errors import ValidationError
 from ..core.executor import ExecutorBase, ProcessContext
@@ -76,7 +77,8 @@ class TorchExecutorBase(ExecutorBase):
             _device.warm_cpu_exp()
             self._warm.done = True
         try:
-            super()._execute(process)
+            with trace.span("executor.execute", trace_id=process.processid):
+                super()._execute(process)
         except SimulatedCrash:
             self.failed += 1  # vanish without closing — failsafe must recover
 

@@ -17,6 +17,7 @@ from typing import Any
 
 import numpy as np
 
+from .. import trace
 from ..core.client import Colonies
 from ..core.errors import NotFoundError, TimeoutError_
 from ..core.fs import CFSClient
@@ -75,21 +76,40 @@ def make_batch_handler(engine, cfs, colony: str):
     """Executor handler for the generator-fired 'generate_batch' function.
 
     ``cfs`` is anything with ``upload_bytes(colony, label, name, data)``.
+    Spans (``trace.py``): ``serve.pad``, ``serve.generate`` (the batch's
+    token slots as attributes) and one ``serve.publish`` a request (the
+    request's id its trace id); counters ``serve.requests``,
+    ``serve.batches`` and ``serve.<each token slot count>``.
     """
 
     def generate_batch(ctx, **kwargs) -> list[Any]:
         requests = kwargs.get("packed_args", [])
         if not requests:
             return [0]
-        max_new = max(int(r.get("max_new_tokens", 8)) for r in requests)
-        out = engine.generate(pad_prompts(requests), max_new_tokens=max_new)
+        asked = [int(r.get("max_new_tokens", 8)) for r in requests]
+        max_new = max(asked)
+        with trace.span("serve.pad"):
+            prompts = pad_prompts(requests)
+        # the prompts' own tokens and the prefill's (every row padded to the
+        # longest); the tokens asked for and the decode's (every row to the
+        # largest ask)
+        tokens = {"prompt_tokens": sum(len(r["prompt"]) for r in requests),
+                  "prefill_tokens": int(prompts.size), "asked_tokens": sum(asked),
+                  "decode_slots": len(requests) * max_new}
+        trace.count("serve.requests", len(requests))
+        trace.count("serve.batches")
+        for name, n in tokens.items():
+            trace.count(f"serve.{name}", n)
+        with trace.span("serve.generate", **tokens):
+            out = engine.generate(prompts, max_new_tokens=max_new)
         for i, r in enumerate(requests):
-            cfs.upload_bytes(
-                colony,
-                RESULTS_LABEL,
-                f"{r['request_id']}.json",
-                json.dumps({"tokens": out[i].tolist()}).encode(),
-            )
+            with trace.span("serve.publish", trace_id=r["request_id"]):
+                cfs.upload_bytes(
+                    colony,
+                    RESULTS_LABEL,
+                    f"{r['request_id']}.json",
+                    json.dumps({"tokens": out[i].tolist()}).encode(),
+                )
         return [len(requests)]
 
     return generate_batch

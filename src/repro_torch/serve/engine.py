@@ -26,6 +26,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import trace
 from ..configs.base import ModelConfig
 from ..data.pipeline import to_device
 from ..device import CAPTURE_LOCK, resolve_device
@@ -87,7 +88,12 @@ class DecodeStep:
     token into ``tok``, advances ``pos`` and writes the token to ``out``;
     ``logits`` is its last output (on a card, the graph's output tensor).
     ``graph`` is the captured body on a card, None on the CPU; each replay
-    adds the kernel launches the capture recorded (``GraphLaunches``)."""
+    adds the kernel launches the capture recorded (``GraphLaunches``).
+    ``probe`` is the body captured once more with the device spans
+    ``decode.step``, ``decode.mixer`` and ``decode.mlp`` (each block's
+    token mixer and MLP) as timing events in the graph
+    (``trace.graph_events``), replayed in the graph's place for a batch's
+    first step while a profiler records."""
 
     def __init__(self, decode, params: Any, cache: dict, batch: int, max_len: int,
                  sampled: bool, device: torch.device):
@@ -100,6 +106,9 @@ class DecodeStep:
         self.generator = torch.Generator(device=device) if sampled else None
         self.logits: torch.Tensor | None = None
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.probe: torch.cuda.CUDAGraph | None = None
+        self._probe_logits: torch.Tensor | None = None
+        self._probe_events: list = []
         self._launches = GraphLaunches()
 
     def body(self) -> None:
@@ -111,11 +120,13 @@ class DecodeStep:
 
     def capture(self, pool) -> None:
         """Warm the body up on the capture stream, then capture it there
-        into a graph drawing on ``pool``. Another thread's CUDA work does
-        not break the capture (``thread_local``); a failure raises."""
-        graph = torch.cuda.CUDAGraph()
+        into a graph drawing on ``pool``, and once more into ``probe``.
+        Another thread's CUDA work does not break a capture
+        (``thread_local``); a failure raises."""
+        graph, probe = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
+            probe.register_generator_state(self.generator)
         capturing = torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local")
         stream = capturing.capture_stream
         with CAPTURE_LOCK:
@@ -127,7 +138,15 @@ class DecodeStep:
             torch.cuda.current_stream().wait_stream(stream)
             with self._launches.capturing(), capturing:
                 self.body()
-        self.graph = graph
+            logits = self.logits
+            # the same launches as the graph's: counted once, at each replay
+            with GraphLaunches().capturing(), trace.graph_events() as events, \
+                    torch.cuda.graph(probe, pool=pool, stream=stream,
+                                     capture_error_mode="thread_local"):
+                with trace.device_span("decode.step"):
+                    self.body()
+        self.graph, self.probe, self._probe_events = graph, probe, events
+        self._probe_logits, self.logits = self.logits, logits
 
     def load(self, cache: dict, tok: torch.Tensor, pos: int) -> None:
         """Every leaf of a prefill cache copied whole into the static one
@@ -140,12 +159,30 @@ class DecodeStep:
 
     def run(self, steps: int) -> None:
         """``steps`` decode steps: graph replays on a card, the body on the
-        CPU. Nothing here waits for the device."""
-        step = self.body if self.graph is None else self.graph.replay
-        for _ in range(steps):
-            step()
-        if self.graph is not None:
-            self._launches.replayed(steps)
+        CPU. Nothing here waits for the device.
+
+        While a torch profiler records, the device spans ``decode.step``,
+        ``decode.mixer`` and ``decode.mlp`` time the device: on a card the first step
+        replays ``probe``, the same kernels on the same buffers, so the
+        outputs and the sampler's draws are the graph's, and its logits are
+        copied into the graph's output, which ``logits`` keeps pointing at;
+        on the CPU every step runs the body under ``decode.step``."""
+        probing = steps > 0 and trace.profiler_recording()
+        if self.graph is None:
+            for _ in range(steps):
+                if probing:
+                    with trace.device_span("decode.step"):
+                        self.body()
+                else:
+                    self.body()
+            return
+        if probing:
+            self.probe.replay()
+            self.logits.copy_(self._probe_logits)
+            trace.graph_replayed(self._probe_events)
+        for _ in range(steps - probing):
+            self.graph.replay()
+        self._launches.replayed(steps)
 
 
 class ServeEngine:
@@ -160,6 +197,13 @@ class ServeEngine:
     batch at a time holds them. A key's step reads the ``params`` it was
     built with, so assigning ``params`` drops every key (changing their
     values in place is seen by every step).
+
+    Spans (``trace.py``, host time: the device runs behind until
+    ``engine.fetch`` waits for it): ``engine.prefill``, ``engine.cache_load``
+    (``DecodeStep.load``), ``engine.decode`` (``DecodeStep.run``),
+    ``engine.fetch`` (the tokens to the host) and ``engine.capture`` around
+    a new key's capture; counters ``engine.captures`` and
+    ``engine.key_evictions`` (keys dropped for ``MAX_DECODE_KEYS``).
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, max_len: int = 256,
@@ -169,7 +213,6 @@ class ServeEngine:
         self.max_len = max_len
         self._prefill = make_prefill(cfg, max_len)
         self._decode = make_serve_step(cfg)
-        self.stats = {"requests": 0, "tokens": 0, "batches": 0}
         self.steps: OrderedDict[tuple, DecodeStep] = OrderedDict()
         self._lock = threading.Lock()
         self._pool = None
@@ -196,12 +239,15 @@ class ServeEngine:
         else:
             if len(self.steps) == MAX_DECODE_KEYS:
                 self.steps.popitem(last=False)
+                trace.count("engine.key_evictions")
             step = DecodeStep(self._decode, self.params, cache, batch, self.max_len, sampled,
                               self.device)
             if self.device.type == "cuda":
                 if self._pool is None:
                     self._pool = torch.cuda.graph_pool_handle()
-                step.capture(self._pool)
+                with trace.span("engine.capture"):
+                    step.capture(self._pool)
+                trace.count("engine.captures")
             self.steps[key] = step
         return step
 
@@ -226,16 +272,17 @@ class ServeEngine:
             batch[key] = (val.to(self.device) if isinstance(val, torch.Tensor)
                           else to_device({key: val}, self.device)[key])
         with self._lock:
-            logits, cache = self._prefill(self.params, batch)
+            with trace.span("engine.prefill"):
+                logits, cache = self._prefill(self.params, batch)
             step = self._step_for(cache, b, temperature > 0.0)
             if step.generator is not None:
                 step.generator.manual_seed(seed)
                 step.temperature.fill_(temperature)
-            step.load(cache, sample_token(logits, step.temperature, step.generator), s)
+            with trace.span("engine.cache_load"):
+                step.load(cache, sample_token(logits, step.temperature, step.generator), s)
             del logits, cache
-            step.run(max_new_tokens - 1)
-            out = step.out[:, s : s + max_new_tokens].to(torch.int32).cpu().numpy()
-            self.stats["requests"] += b
-            self.stats["tokens"] += b * max_new_tokens
-            self.stats["batches"] += 1
+            with trace.span("engine.decode"):
+                step.run(max_new_tokens - 1)
+            with trace.span("engine.fetch"):  # waits for the device
+                out = step.out[:, s : s + max_new_tokens].to(torch.int32).cpu().numpy()
         return out

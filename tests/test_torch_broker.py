@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 
 from repro.core.cluster import standalone_server as ref_standalone_server
+from repro_torch import trace
 from repro_torch.broker import ColoniesHttpServer, standalone_server
 from repro_torch.core import errors
 from repro_torch.core.client import Colonies, InProcTransport
@@ -326,6 +327,7 @@ def test_port_executors_complete_a_workflow_on_the_port_broker(tmp_path):
         data_ex = tx.DataExecutor(client, "dev", "edge-1", "edge-data", storage, **kw)
         serve_ex = tx.ServeExecutor(client, "dev", "serve-1", "h100-serve", storage,
                                     arch="stablelm-3b", max_len=32, **kw)
+        before = trace.snapshot()["counters"]
         for ex in (data_ex, serve_ex):
             running.append(ex)
             ex.start(poll_timeout=0.2)
@@ -351,7 +353,7 @@ def test_port_executors_complete_a_workflow_on_the_port_broker(tmp_path):
             ex.stop()
         http.stop()
         srv.stop()
-    assert serve_ex.engine.stats["batches"] == 1 and data_ex.processed == 1
+    assert trace.counters_since(before)["serve.batches"] == 1 and data_ex.processed == 1
     direct = serve_ex.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
                                       max_new_tokens=4).tolist()
     assert served == direct

@@ -16,6 +16,7 @@ from repro.core.fs import MemoryStorage as RefMemoryStorage
 from repro.runtime.jax_executor import DataExecutor as RefDataExecutor
 from repro.runtime.jax_executor import ServeExecutor as RefServeExecutor
 from repro.runtime.jax_executor import TrainerExecutor as RefTrainerExecutor
+from repro_torch import trace
 from repro_torch.core.client import Colonies, InProcTransport
 from repro_torch.core.fs import CFSClient
 from repro_torch.core.spec import FunctionSpec, WorkflowSpec
@@ -58,6 +59,7 @@ def test_train_then_serve_handoff(colony, port_client):
     server = tx.ServeExecutor(client, "dev", "cloud-1", "h100-serve", storage,
                               colony_prvkey=colony["colony_prv"], arch="stablelm-3b",
                               max_len=64, run="handoff", device="cpu")
+    before = trace.snapshot()["counters"]
     server.start(poll_timeout=0.2)
     wf = {"colonyname": "dev",
           "functionspecs": [{"nodename": "batch", "funcname": "generate_batch",
@@ -70,7 +72,7 @@ def test_train_then_serve_handoff(colony, port_client):
     rids = [infc.submit(pr, max_new_tokens=5) for pr in PROMPTS]
     served = [infc.wait(r, timeout=60) for r in rids]
     server.stop()
-    assert server.engine.stats["batches"] == 1
+    assert trace.counters_since(before)["serve.batches"] == 1
     requests = [{"prompt": pr} for pr in PROMPTS]
     assert served == server.engine.generate(pad_prompts(requests), max_new_tokens=5).tolist()
     # the reference's ServeExecutor restores the same checkpoint and serves

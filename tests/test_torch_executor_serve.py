@@ -16,6 +16,7 @@ import torch
 from repro.runtime.jax_executor import ServeExecutor as RefServeExecutor
 from repro.core.fs import MemoryStorage as RefMemoryStorage
 from repro_torch import device as port_device
+from repro_torch import trace
 from repro_torch.core.client import Colonies, InProcTransport
 from repro_torch.core.fs import CFSClient, MemoryStorage
 from repro_torch.interop import params_from_reference
@@ -40,6 +41,7 @@ def test_generator_batches_requests_into_one_port_engine_call(colony, port_clien
     ref = RefServeExecutor(colony["client"], "dev", "serve-ref", "tpu-serve", RefMemoryStorage(),
                            colony_prvkey=colony["colony_prv"], arch="stablelm-3b", max_len=64)
     ex.engine.params = params_from_reference(jax.tree.map(np.asarray, ref.engine.params))
+    before = trace.snapshot()["counters"]
     ex.start(poll_timeout=0.2)
     wf = {"colonyname": "dev",
           "functionspecs": [{"nodename": "batch", "funcname": "generate_batch",
@@ -55,8 +57,10 @@ def test_generator_batches_requests_into_one_port_engine_call(colony, port_clien
     outs = [infc.wait(r, timeout=60) for r in rids]
     ex.stop()
     assert all(len(o) == 4 for o in outs)
-    assert ex.engine.stats["batches"] == 1  # 3 requests, ONE batched call
-    assert ex.engine.stats["requests"] == 3 and ex.engine.stats["tokens"] == 12
+    served = trace.counters_since(before)
+    assert served["serve.batches"] == 1  # 3 requests, ONE batched call
+    assert served["serve.requests"] == 3
+    assert served["serve.asked_tokens"] == served["serve.decode_slots"] == 12
     assert ex.processed == 1 and ex.failed == 0
     batch = [{"request_id": r, "prompt": p, "max_new_tokens": 4} for r, p in zip(rids, prompts)]
     want = ref.engine.generate(_pad(batch), max_new_tokens=4)

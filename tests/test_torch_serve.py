@@ -13,6 +13,7 @@ from repro import models as R
 from repro.configs import get_config as ref_get_config
 from repro.serve import batcher as ref_batcher
 from repro.serve.engine import ServeEngine as RefEngine
+from repro_torch import trace
 from repro_torch.configs import get_config
 from repro_torch.interop import params_from_reference
 from repro_torch.runtime.store import MemoryStore
@@ -112,6 +113,7 @@ def test_port_engine_behind_colonyos_generator(colony):
     params = params_from_reference(jax.tree.map(np.asarray, jax_ex.engine.params), "cpu")
     port_engine = ServeEngine(cfg, params, max_len=64, device="cpu")
 
+    before = trace.snapshot()["counters"]
     ex = ExecutorBase(client, "dev", "serve-torch", "torch-serve", colony_prvkey=colony["colony_prv"])
     ex.register_function(
         "generate_batch",
@@ -138,6 +140,8 @@ def test_port_engine_behind_colonyos_generator(colony):
         outs = [infc.wait(r, timeout=30) for r in rids]
     finally:
         ex.stop()
-    assert port_engine.stats == {"requests": 3, "tokens": 12, "batches": 1}  # ONE batched call
+    served = trace.counters_since(before)
+    assert served["serve.batches"] == 1 and served["serve.requests"] == 3  # ONE batched call
+    assert served["serve.asked_tokens"] == served["serve.decode_slots"] == 12
     want = jax_ex.engine.generate(np.asarray(prompts, np.int32), max_new_tokens=4)
     assert outs == want.tolist()
