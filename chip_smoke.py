@@ -7,10 +7,10 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, each of which exits non-zero when it fails:
   1. the card: name and power limit;
-  2. the build: ``nvcc`` compiles the three kernels (flash attention,
-     RWKV-6 WKV, Mamba selective scan) for sm_90a from the checkout's
-     sources, in parallel, and prints their registers, shared memory and
-     spills, and the Mamba scan's resident blocks per SM;
+  2. the build: ``nvcc`` compiles the four kernels (flash attention,
+     RWKV-6 WKV, Mamba selective scan, decode attention) for sm_90a from
+     the checkout's sources, in parallel, and prints their registers,
+     shared memory and spills, and the Mamba scan's resident blocks per SM;
   3. each kernel against its plain-torch twin on the card, case by case
      (the Mamba scan also at both ends of jamba's decay range and with x
      in bfloat16; flash attention also bidirectional and with k/v of a
@@ -18,7 +18,9 @@ Phases, each of which exits non-zero when it fails:
      and seamless's encoder); where a case's window is shorter than its
      sequence, the twin without the window and with a shorter one must
      fail the case's bar, and past a thousand keys the twin without the
-     last 64;
+     last 64; ``[decode-kernel]``: decode attention (B4) at chat's float32
+     step and at GQA, ring and stablelm bf16 steps, the twin a row short
+     outside the bar;
   4. the slices: stablelm-3b and rwkv6-7b at full width and depth,
      jamba-1.5-large without experts at full width and 16 layers,
      mixtral-8x7b at every published width and 16 of 32 layers
@@ -28,7 +30,9 @@ Phases, each of which exits non-zero when it fails:
      requests in batches of 4 through the batch handler; with every launch
      count set to 0 just before, each kernel must launch exactly as often
      per prefill as the slice's layout says (and a kernel it does not name,
-     never), and greedy output must repeat exactly. Each slice's breakdown
+     never), B4 once per attention layer in each decode step (the steps
+     replayed and a new decode key's warm-up steps), and greedy output
+     must repeat exactly. Each slice's breakdown
      takes a batch of 4 two ways: a prefill and an eager ``decode_step``
      loop, and the same batch through the engine, which decodes by
      replaying the one CUDA graph it captured for the batch's decode key;
@@ -39,7 +43,8 @@ Phases, each of which exits non-zero when it fails:
      the engine's. For mixtral and
      deepseek the served tokens must also equal direct ``generate``, B1
      must launch once per attention layer in a prefill and never in a
-     decode step, and the share of dropped (token, choice) pairs is printed
+     decode step, B4 once per attention layer in a decode step (mixtral;
+     MLA decodes in plain torch), and the share of dropped (token, choice) pairs is printed
      for a prefill (also split between the left padding and the prompts'
      own tokens) and a decode step; ``[mixtral-swa]`` holds 16 decode steps
      past the 4,096-token window (B=1, prompt 4,352) to the forward at the
@@ -323,6 +328,23 @@ BIDIR_CASES = [
     (300, 80, torch.bfloat16, 3e-2, 3e-2),
     (200, 128, torch.bfloat16, 3e-2, 3e-2),
 ]
+# B4 against its twin (B, T, KV, G, D, dtype, positions, atol, rtol, label).
+# Float32: another order of the sums than the twin's products, float32 ulps
+# of outputs of about 1. bfloat16: the kernel works in float32 and rounds the
+# output once (half a bf16 ulp, 2^-8 of the value), so it is held to the twin
+# in float32 on the same bf16 inputs (the bf16 twin rounds its scores to bf16).
+DECODE_CASES = [
+    (32, 768, 32, 1, 80, torch.float32, (466, 720), 2e-5, 1e-4, "chat float32"),
+    (4, 2064, 8, 4, 128, torch.bfloat16, (1000, 2063), 1e-2, 1e-2, "GQA group 4 bf16"),
+    (1, 4096, 8, 4, 128, torch.bfloat16, (4351, 4367), 1e-2, 1e-2, "mixtral ring, wrapped, bf16"),
+    (4, 2064, 32, 1, 80, torch.bfloat16, (2047,), 1e-2, 1e-2, "stablelm bf16"),
+]
+DECODE_LAST_ROWS = 32  # a twin over the newest rows alone must miss the bar once more rows live
+# B4's timed shapes: chat's step (float32) at the first and last decode
+# position of a chat wave (466 padded + 255 steps), and a GQA bf16 step.
+DECODE_TIMING = [(32, 768, 32, 1, 80, torch.float32, 466, "chat pos 466"),
+                 (32, 768, 32, 1, 80, torch.float32, 720, "chat pos 720"),
+                 (4, 2064, 8, 4, 128, torch.bfloat16, 2047, "GQA group 4 bf16 B=4")]
 PROMPT_LENS = [8, 300, 37, 129, 64, 200, 17, 150]  # batches of 4: S = 300, then 200
 NEW_TOKENS = 16
 # A captured decode step runs eager's kernels, so its logits should be
@@ -617,6 +639,44 @@ def kernel_modules() -> dict:
     return dict(MODULES)
 
 
+def attn_decode_layers(cfg) -> int:
+    """The layers whose decode step runs ``attn_decode``, which launches B4
+    once a step: the self-attention mixers (``attn``, and ``attn_x``'s
+    self-attention) of every stack; MLA and cross-attention decode in plain
+    torch."""
+    from repro_torch.models.model import main_layout, prefix_layout
+
+    stacks = [main_layout(cfg)] + ([prefix_layout(cfg)] if cfg.dense_prefix_layers else [])
+    return sum(layout.num_groups * sum(b.mixer in ("attn", "attn_x") for b in layout.group)
+               for layout in stacks)
+
+
+def decode_launches(cfg, steps: int) -> dict[str, int]:
+    """Each kernel of ``kernel_modules()``'s launches in ``steps`` decode
+    steps: B4 once per attention layer a step, nothing else."""
+    return {name: steps * attn_decode_layers(cfg) if name == "decode_attention" else 0
+            for name in kernel_modules()}
+
+
+def engine_decode_steps(before: dict, new_tokens: int = NEW_TOKENS) -> int:
+    """The decode steps the engines ran since ``before`` (a
+    ``trace.snapshot()``), each generate asking ``new_tokens``: ``new_tokens
+    - 1`` after each prefill, and a new decode key's ``WARMUP_STEPS`` eager
+    steps before its capture (they run B4 too; the captures run nothing)."""
+    from repro_torch.serve.engine import WARMUP_STEPS
+
+    now = trace.snapshot()
+
+    def grew(section: str, name: str) -> int:
+        def read(snap):
+            got = snap[section].get(name, 0)
+            return got["count"] if isinstance(got, dict) else got
+        return read(now) - read(before)
+
+    return (grew("spans", "engine.prefill") * (new_tokens - 1)
+            + grew("counters", "engine.captures") * WARMUP_STEPS)
+
+
 def phase_build() -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -705,6 +765,108 @@ def phase_kernel_cases() -> float:
                   f"{'outside the bar: ok' if seen else 'within the bar: FAIL'}")
             check(seen, f"{label}: the twin without the last 64 keys passes the bar")
     return worst_bf16
+
+
+def decode_inputs(b: int, t: int, kv: int, g: int, d: int, dtype: torch.dtype,
+                  gen: torch.Generator) -> tuple[torch.Tensor, ...]:
+    """q (B, 1, KV·G, D) and a cache's k, v (B, T, KV, D), seeded."""
+    q = torch.randn((b, 1, kv * g, d), generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn((b, t, kv, d), generator=gen, device="cuda").to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def phase_decode_cases() -> float:
+    """[decode-kernel]: B4 through ``ops.decode_attention`` against its twin
+    in float32 (``DECODE_CASES``). The newest live row's key is made to
+    outweigh the rest for the first query head of each even kv head's
+    group, so the twin one row short must miss the bar at any length; the
+    odd kv heads keep random keys and average over every live row, so the
+    twin over the newest ``DECODE_LAST_ROWS`` rows alone must miss it too.
+    Returns the largest error."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops
+
+    def rows_twin(q, k, v, lo, hi):
+        rows = torch.zeros(k.shape[1], dtype=torch.bool, device="cuda")
+        rows[lo:hi] = True
+        return da.gqa_scores_softmax_out(q.float(), k.float(), v.float(),
+                                         rows[None, None, None, None])
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for b, t, kv, g, d, dtype, positions, atol, rtol, label in DECODE_CASES:
+        q, k, v = decode_inputs(b, t, kv, g, d, dtype, gen)
+        for pos in positions:
+            p, n = torch.tensor([pos], device="cuda"), min(pos + 1, t)
+            if pos < t:  # the newest row outweighs the rest for the even kv heads' first query head
+                k[:, pos, ::2] = 3 * q[:, 0].reshape(b, kv, g, d)[:, ::2, 0]
+            out = ops.decode_attention(q, k, v, p)
+            ref = da.decode_attention_plain(q.float(), k.float(), v.float(), p)
+            short = da.decode_attention_plain(q.float(), k.float(), v.float(), p - 1)
+            newest = rows_twin(q, k, v, max(n - DECODE_LAST_ROWS, 0), n)
+            torch.cuda.synchronize()
+            err = (out.float() - ref).abs().max().item()
+            ok = (out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+                  and torch.allclose(out.float(), ref, atol=atol, rtol=rtol))
+            seen = pos >= t or not torch.allclose(short, ref, atol=atol, rtol=rtol)
+            seen_old = n <= DECODE_LAST_ROWS or not torch.allclose(newest, ref, atol=atol,
+                                                                   rtol=rtol)
+            print(f"[decode-kernel] {label}: B={b} T={t} KV={kv} G={g} D={d} "
+                  f"{str(dtype).split('.')[-1]} pos {pos} ({n} live rows, "
+                  f"{da.splits_for(b * kv, t)} splits): max_abs_err {err:.3e} (atol {atol}, rtol "
+                  f"{rtol}) {'ok' if ok else 'FAIL'}; the twin a row short "
+                  f"{'outside the bar' if seen else 'within the bar: FAIL'}; the twin over the "
+                  f"newest {DECODE_LAST_ROWS} rows "
+                  f"{'outside the bar' if seen_old else 'within the bar: FAIL'}")
+            check(ok and seen and seen_old, f"B4 disagrees with its twin: {label} pos {pos}")
+            worst = max(worst, err)
+    return worst
+
+
+def phase_decode_timing(worst_err: float, launches: int) -> tuple[dict, dict]:
+    """B4's row: at each of ``DECODE_TIMING`` the kernel (events and device
+    time), its twin (the einsums it replaced: a permuted copy of the whole
+    cache, then batched products over every row) and SDPA on the live rows
+    (the yardstick; the port never calls it), beside the bound: the live
+    rows' K and V read once, q read and out written once."""
+    from repro_torch.kernels import decode_attention as da
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = {}
+    for b, t, kv, g, d, dtype, pos, label in DECODE_TIMING:
+        q, k, v = decode_inputs(b, t, kv, g, d, dtype, gen)
+        p = torch.tensor([pos], device="cuda")
+        n = min(pos + 1, t)
+        nbytes = da.bytes_moved(b, kv * g, kv, n, d, q.element_size())
+        bound = nbytes / PEAK_BYTES_S * 1e3
+        kernel_ms, kernel_dev = timed(lambda: da.decode_attention_cuda(q, k, v, p), 3, 50, 50,
+                                      bound, f"decode {label}")
+        plain_ms = cuda_ms(lambda: da.decode_attention_plain(q, k, v, p), 2, 10)
+        qh, kh, vh = q.transpose(1, 2), k[:, :n].transpose(1, 2), v[:, :n].transpose(1, 2)
+        library_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qh, kh, vh, enable_gqa=g > 1), 3, 20)
+        print(f"[time] decode {label}: B={b} T={t} KV={kv} G={g} D={d} "
+              f"{str(dtype).split('.')[-1]}, {n} live rows, {da.splits_for(b * kv, t)} splits: "
+              f"kernel {kernel_ms:.4f} ms (device {kernel_dev:.4f} ms, "
+              f"{nbytes / kernel_dev / 1e9:.2f} TB/s), plain {plain_ms:.4f} ms, sdpa on the live rows {library_ms:.4f} ms; bound "
+              f"{bound:.4f} ms ({nbytes} bytes), {bound / kernel_dev:.1%} of it")
+        rows[label] = {"shape": [b, t, kv, g, d, pos], "ms": kernel_ms, "device_ms": kernel_dev,
+                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound,
+                       "bound_by": "bytes"}
+    main = rows[DECODE_TIMING[0][-1]]
+    return {
+        "name": "decode_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": None,  # the reference decodes in plain jnp (attn_decode)
+        "launches": launches,
+        "max_abs_err": worst_err,
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": main["library_ms"],
+    }, rows
 
 
 def wkv_inputs(b: int, t: int, h: int, k: int, gen: torch.Generator, nonzero_s0: bool = True,
@@ -894,7 +1056,8 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
                 per_prefill: dict[str, int], after=None) -> tuple[dict, dict]:
     """Serve ``arch`` at a real size; in the first run every kernel of
     ``kernel_modules()`` must launch ``per_prefill[name]`` times per prefill
-    (0 for a kernel not named). A config with a memory (``memory_of``) gets
+    (0 for a kernel not named), and B4 once per attention layer a decode
+    step (``decode_launches``). A config with a memory (``memory_of``) gets
     every gate set to ``GATE`` and each request a seeded memory of its own,
     and is served through ``generate`` (``make_server``).
     ``after(engine, requests, served, tag)``, when given, runs on the same
@@ -928,7 +1091,7 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
 
     runs = []
     for run in range(2):
-        prefills_before = prefills()
+        prefills_before, mark = prefills(), trace.snapshot()
         if run == 0:
             for mod in mods.values():
                 mod.launches = 0
@@ -936,9 +1099,11 @@ def phase_slice(arch: str, variant: str, prompt_lens: list[int],
         if run == 0:
             counts = {name: mod.launches for name, mod in mods.items()}
             n_prefills = prefills() - prefills_before
-            want = {name: per_prefill.get(name, 0) * n_prefills for name in mods}
-            print(f"{tag} kernel launches {counts} over {n_prefills} prefills "
-                  f"({cfg.num_layers} layers; want {want})")
+            steps = engine_decode_steps(mark)
+            per_steps = decode_launches(cfg, steps)
+            want = {name: per_prefill.get(name, 0) * n_prefills + per_steps[name] for name in mods}
+            print(f"{tag} kernel launches {counts} over {n_prefills} prefills and {steps} decode "
+                  f"steps ({cfg.num_layers} layers; want {want})")
             check(n_prefills > 0 and counts == want,
                   f"kernel launches {counts} on the {arch} path, want {want}")
         for o in outs:
@@ -1012,7 +1177,8 @@ def moe_checks(engine, requests: list[dict], served: list[list[int]], tag: str,
     """An MoE slice at every published width: ``n_params_want`` params;
     the served tokens equal direct ``generate`` on each batch; at one
     prefill and one decode step of a batch of 4, each kernel launches
-    ``per_prefill`` times in the prefill and never in the decode step, and
+    ``per_prefill`` times in the prefill and B4 once per attention layer
+    in the decode step (``decode_launches``), and
     the share of dropped (token, choice) pairs is printed (C16: a decode
     group of 4 tokens has 1 slot per expert), at the prefill also split
     between the left padding and the prompts' own tokens; and the decode
@@ -1046,7 +1212,7 @@ def moe_checks(engine, requests: list[dict], served: list[list[int]], tag: str,
         decode_step(engine.params, cfg, logits.argmax(-1), cache, s)
         counts["decode"] = {name: mod.launches for name, mod in mods.items()}
         at_decode = drops.take()
-    want = {"prefill": {n: per_prefill.get(n, 0) for n in mods}, "decode": {n: 0 for n in mods}}
+    want = {"prefill": {n: per_prefill.get(n, 0) for n in mods}, "decode": decode_launches(cfg, 1)}
     print(f"{tag} launches at one prefill and one decode step: {json.dumps(counts)}")
     check(counts == want, f"launches {counts}, want {want}")
     caps = {n: max(1, int(min(cfg.moe.group_size, n) * k * cf / e)) for n in (b * s, b)}
@@ -1187,7 +1353,8 @@ def phase_mixtral_swa(engine) -> tuple[dict, dict]:
     cache. Each decode step's logits are held to the forward's at that
     position at the bf16 bar of tests/test_decode_consistency.py (atol
     3e-2, rtol 1e-3); at B=1 no choice drops (C16). B1 must launch once per
-    layer in the forward and in the prefill, and never in decode. As a
+    layer in the forward and in the prefill, and B4 once per layer a decode
+    step, over the ring cache's live slots. As a
     control, the forward without the window must fall outside that bar at
     one step at least, or the phase could not tell a B1 that ignores the
     window."""
@@ -1257,7 +1424,7 @@ def phase_mixtral_swa(engine) -> tuple[dict, dict]:
     layers = cfg.num_layers
     want = {"forward": {n: layers if n == "flash_attention" else 0 for n in mods},
             "prefill": {n: layers if n == "flash_attention" else 0 for n in mods},
-            "decode": {n: 0 for n in mods}}
+            "decode": decode_launches(cfg, NEW_TOKENS)}
     print(f"{tag} B=1, prompt {s} tokens (window {SWA_WINDOW} + {s - SWA_WINDOW}), "
           f"{NEW_TOKENS} decode steps past the window: forward {forward_s:.4f} s; launches "
           f"{json.dumps(counts)}; dropped share forward max {max(fwd_drops):.4f}, decode max "
@@ -1345,7 +1512,8 @@ def phase_xattn_decode(engine) -> tuple[dict, dict]:
     it. In bf16 the distances are printed beside the control's (decode's
     bf16 scores and B1's float32 scores round apart, by about as much as
     another memory moves seamless's logits). B1 launches a prefill's count
-    in each forward and in the prefill, never in decode."""
+    in each forward and in the prefill, never in decode; B4 once per
+    self-attention layer a decode step."""
     from repro_torch.tree import map_leaves
 
     cfg = engine.cfg
@@ -1381,8 +1549,8 @@ def phase_xattn_decode(engine) -> tuple[dict, dict]:
           "cannot see the memory")
     per = {"llama-3.2-vision-11b": VISION_PER_PREFILL,
            "seamless-m4t-large-v2": SEAMLESS_PER_PREFILL}[cfg.name]
-    want = {phase: {name: 0 if phase == "decode" else per.get(name, 0) for name in mods}
-            for phase in f32["launches"]}
+    want = {phase: decode_launches(cfg, NEW_TOKENS) if phase == "decode"
+            else {name: per.get(name, 0) for name in mods} for phase in f32["launches"]}
     for run in (bf16, f32):
         check(run["launches"] == want, f"{tag} launches {run['launches']}, want {want}")
     print(f"{tag} launches in each of the two runs {json.dumps(f32['launches'])}")
@@ -1569,7 +1737,8 @@ def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> dict[str
     seeded memory: 17 patches, or 40 frames for seamless, gates at
     ``GATE``): logits and greedy tokens; the card launches each kernel
     ``prefill_launches`` times in the forward and again in generate's
-    prefill, never in its decode steps. Returns the launch counts."""
+    prefill, and B4 once per attention layer in each of generate's decode
+    steps and its capture's warm-up steps. Returns the launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.models import forward, init_params, model_spec
     from repro_torch.serve.engine import ServeEngine
@@ -1600,11 +1769,13 @@ def phase_cross_device(arch: str, variant: str, t: int, reseed=None) -> dict[str
     check(ok, f"{arch} logits differ between the card and the CPU")
     tc = on_cpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS, extras=extras)
     zero_launches(mods)
+    mark = trace.snapshot()
     tg = on_gpu.generate(tokens.numpy(), max_new_tokens=NEW_TOKENS, extras=extras)
+    steps = decode_launches(cfg, engine_decode_steps(mark))
     counts = {name: counts[name] + mod.launches for name, mod in mods.items()}
     print(f"[cross] {arch} greedy tokens identical: {(tc == tg).all()}")
     check((tc == tg).all(), f"{arch} greedy tokens differ between the card and the CPU")
-    want = {name: 2 * n for name, n in prefill_launches(cfg).items()}
+    want = {name: 2 * n + steps[name] for name, n in prefill_launches(cfg).items()}
     print(f"[cross] {arch} launches on the card (forward and generate): {counts}")
     check(counts == want, f"{arch} launches {counts}, want {want}")
     return counts
@@ -2123,7 +2294,8 @@ def dryrun_serve_checks(engine, requests: list[dict], served: list[list[int]], t
     own weights: each predicted by ``run_cell`` on a (1, 1) mesh, then run
     for real through ``make_prefill``/``make_serve_step``. FLOPs equal,
     the peak within ``DRYRUN_PEAK_RTOL``, B1 32 a prefill through the
-    custom op and 0 a decode step; and greedy tokens of the first batch
+    custom op and none a decode step, B4 32 a decode step and none a
+    prefill; and greedy tokens of the first batch
     through both step functions, at a 0-dim position tensor on the card,
     equal to what the engine served."""
     from repro_torch.serve.batcher import pad_prompts
@@ -2146,7 +2318,7 @@ def dryrun_serve_checks(engine, requests: list[dict], served: list[list[int]], t
     check(flops == pred[p_name]["roofline"]["flops_per_device"],
           f"[dryrun] prefill FLOPs {flops} != the trace's {pred[p_name]['roofline']['flops_per_device']}")
     per_layer = 4 * p_batch * cfg.num_heads * cfg.head_dim * (p_seq * (p_seq + 1) // 2)
-    check(info["launches"] == {"flash_attention": cfg.num_layers, "rwkv6_wkv": 0, "mamba_scan": 0}
+    check(info["launches"] == {n: cfg.num_layers if n == "flash_attention" else 0 for n in mods}
           and info["by_op"].get("repro_torch.flash_attention") == cfg.num_layers * per_layer,
           f"[dryrun] prefill: launches {info['launches']}, the op's FLOPs "
           f"{info['by_op'].get('repro_torch.flash_attention')}: want B1 {cfg.num_layers} times "
@@ -2167,8 +2339,8 @@ def dryrun_serve_checks(engine, requests: list[dict], served: list[list[int]], t
         storage_bytes(params) + storage_bytes(cache) + storage_bytes(tok) + storage_bytes(pos))
     check(flops == pred[d_name]["roofline"]["flops_per_device"],
           f"[dryrun] decode FLOPs {flops} != the trace's {pred[d_name]['roofline']['flops_per_device']}")
-    check(all(n == 0 for n in info["launches"].values()),
-          f"[dryrun] decode step launched {info['launches']}, want none")
+    check(info["launches"] == decode_launches(cfg, 1),
+          f"[dryrun] decode step launched {info['launches']}, want {decode_launches(cfg, 1)}")
     rows[d_name] = dryrun_line(d_name, pred[d_name], flops, peak, ms, info["launches"])
     del cache
 
@@ -3019,7 +3191,8 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
         lease = max(5, math.ceil(3 * attempt_s))
         print(f"{tag} hand-off train (4 steps, 4 checkpoints): {done['out'][0]}; attempt "
               f"{attempt_s:.3f} s from assign to close, so DAG 1's train lease is {lease} s")
-        before = trace.snapshot()["counters"]
+        mark = trace.snapshot()
+        before = mark["counters"]
         server = start(tx.ServeExecutor(client, COLONY, "h100-serve-handoff", "h100-serve",
                                         storage, arch="stablelm-3b", max_len=64, run="handoff",
                                         **kw))
@@ -3033,6 +3206,7 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
         served = [infc.wait(r, timeout=120) for r in rids]
         server.stop()
         handoff = {name: mod.launches for name, mod in mods.items()}
+        b4 = decode_launches(get_config("stablelm-3b", "smoke"), engine_decode_steps(mark, 8))
         check(served_since(before)["batches"] == 1,
               f"hand-off batches {served_since(before)}")
         direct = server.engine.generate(pad_prompts([{"prompt": pr} for pr in prompts]),
@@ -3040,9 +3214,10 @@ def phase_executors_continuum(broker: Broker) -> tuple[dict, dict]:
         print(f"{tag} served from the restored checkpoint through a generator: {served[0]} ...; "
               f"identical to the engine's own generate: {served == direct}")
         check(served == direct, "tokens served through the generator differ from generate's")
-        # 4 steps x (forward + remat recomputation) x layers, then one prefill
-        want = {name: EXEC_TRAIN_KW["steps"] * 2 * layers + layers
-                if name == "flash_attention" else 0 for name in mods}
+        # 4 steps x (forward + remat recomputation) x layers, then one
+        # prefill; B4 a layer in each decode step
+        want = {name: (EXEC_TRAIN_KW["steps"] * 2 * layers + layers
+                       if name == "flash_attention" else 0) + b4[name] for name in mods}
         print(f"{tag} hand-off launches {handoff} (want {want})")
         check(handoff == want, f"hand-off launches {handoff}, want {want}")
 
@@ -3155,7 +3330,8 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
         return out
 
     engine.generate = timed_generate
-    before = trace.snapshot()["counters"]
+    mark = trace.snapshot()
+    before = mark["counters"]
     try:
         ex.start(poll_timeout=0.2)
         g = client.add_generator({"colonyname": COLONY, "name": "serve-full", "queuesize": 4,
@@ -3177,6 +3353,7 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
         served = {rid: infc.wait(rid, timeout=600) for rid in rids}
         wall_s = time.perf_counter() - t0
         counts = {name: mod.launches for name, mod in mods.items()}
+        b4 = decode_launches(cfg, engine_decode_steps(mark))
         check(broker.alive(), "the broker process died")
     finally:
         ex.stop()
@@ -3184,14 +3361,15 @@ def phase_executors_serve_full(broker: Broker) -> tuple[dict, dict]:
     batches = [q for q in client.get_processes(COLONY, prv, state="successful", count=1000)
                if q["assignedexecutorid"] == ex.executorid]
     batches.sort(key=lambda q: q["submissiontime"])
-    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
+    want = {name: (32 * len(batches) if name == "flash_attention" else 0) + b4[name]
+            for name in mods}
     print(f"{tag} {len(requests)} requests in {len(batches)} batches of "
           f"{[len(q['spec']['kwargs']['packed_args']) for q in batches]}; served "
           f"{served_since(before)}; launches {counts} (want {want})")
     sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
-    served = served_since(before)
-    check(sizes == [4, 4] and served["batches"] == 2 and served["requests"] == 8,
-          f"batches of {sizes}, served {served}")
+    tally = served_since(before)
+    check(sizes == [4, 4] and tally["batches"] == 2 and tally["requests"] == 8,
+          f"batches of {sizes}, served {tally}")
     check(counts == want, f"launches {counts}, want {want}")
     prefill_s = []
     for i, q in enumerate(batches):
@@ -3394,7 +3572,8 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         check(done["state"] == "successful" and done["retries"] == 0
               and done["out"][0]["final_step"] == 3 and trainer.processed == 1
               and trainer.failed == 0, f"train: {done['state']} {done['errors'] or done['out']}")
-        before = trace.snapshot()["counters"]
+        mark = trace.snapshot()
+        before = mark["counters"]
         server = start(tx.ServeExecutor(client, COLONY, "h100-serve-durable", "h100-serve",
                                         storage, arch="stablelm-3b", max_len=64, run="durable",
                                         **kw))
@@ -3411,6 +3590,7 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         served = [infc.wait(r, timeout=120) for r in rids]
         server.stop()
         launches = {name: mod.launches for name, mod in mods.items()}
+        b4 = decode_launches(get_config("stablelm-3b", "smoke"), engine_decode_steps(mark, 8))
         gen = [e for e in client.get_generators(COLONY, prv)
                if e["generatorid"] == g["generatorid"]][0]
         print(f"{tag} SIGKILL and restart between the 2nd and the 3rd pack in {restart_s[1]:.3f} "
@@ -3425,8 +3605,8 @@ def phase_durable_continuum(broker: Broker) -> tuple[dict, dict]:
         print(f"{tag} served from the restored checkpoint: {served[0]} ...; identical to the "
               f"engine's own generate: {served == direct}")
         check(served == direct, "tokens served through the generator differ from generate's")
-        want = {name: EXEC_TRAIN_KW["steps"] * 2 * layers + layers
-                if name == "flash_attention" else 0 for name in mods}
+        want = {name: (EXEC_TRAIN_KW["steps"] * 2 * layers + layers
+                       if name == "flash_attention" else 0) + b4[name] for name in mods}
         print(f"{tag} launches {launches} (want {want}, [executors-continuum]'s hand-off)")
         check(launches == want, f"launches {launches}, want {want}")
         check(broker.alive(), "the broker process died")
@@ -3461,7 +3641,8 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
     engine, cfg = ex.engine, ex.engine.cfg
     check(cfg.num_layers == 32 and cfg.param_dtype == "float32",
           f"{cfg.num_layers} layers, {cfg.param_dtype}")
-    before = trace.snapshot()["counters"]
+    mark = trace.snapshot()
+    before = mark["counters"]
     try:
         ex.start(poll_timeout=0.2)
         g = client.add_generator({"colonyname": COLONY, "name": "durable-serve-full",
@@ -3484,15 +3665,16 @@ def phase_durable_serve_full(broker: Broker, alone: dict) -> tuple[dict, dict]:
             batch_s.append(time.perf_counter() - t)
         wall_s = time.perf_counter() - t0
         counts = {name: mod.launches for name, mod in mods.items()}
+        b4 = decode_launches(cfg, engine_decode_steps(mark))
         check(broker.alive(), "the broker process died")
     finally:
         ex.stop()
-    want = {name: 32 * 2 if name == "flash_attention" else 0 for name in mods}
+    want = {name: (32 * 2 if name == "flash_attention" else 0) + b4[name] for name in mods}
     print(f"{tag} 8 requests in 2 batches, SIGKILL and restart between them in {restart_s:.3f} "
           f"s; served {served_since(before)}; launches {counts} (want {want})")
-    served = served_since(before)
-    check(served["batches"] == 2 and served["requests"] == 8 and ex.processed == 2,
-          f"served {served}, processed {ex.processed}")
+    tally = served_since(before)
+    check(tally["batches"] == 2 and tally["requests"] == 8 and ex.processed == 2,
+          f"served {tally}, processed {ex.processed}")
     check(counts == want, f"launches {counts}, want {want}")
     for batch, got in zip(batches, served):
         direct = engine.generate(pad_prompts(batch), max_new_tokens=NEW_TOKENS).tolist()
@@ -3980,7 +4162,8 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
 
     monkey = ChaosMonkey(kill, spawn, interval=(0.5, 2.0), seed=HA_SEED)
     engine.generate = timed_generate
-    counted = trace.snapshot()["counters"]
+    mark = trace.snapshot()
+    counted = mark["counters"]
     try:
         for _ in range(3):
             spawn()
@@ -4007,6 +4190,7 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
         served = {rid: infc.wait(rid, timeout=600) for rid in rids}
         wall_s = time.perf_counter() - t0
         counts = {name: mod.launches for name, mod in mods.items()}
+        b4 = decode_launches(cfg, engine_decode_steps(mark))
         deadline = time.perf_counter() + 120
         while time.perf_counter() < deadline:
             stats = client.stats(COLONY, prv)
@@ -4027,13 +4211,14 @@ def phase_ha_serve_full(ha: HABroker, alone: dict) -> tuple[dict, dict]:
                if q["assignedexecutorid"] == ex.executorid]
     batches.sort(key=lambda q: q["submissiontime"])
     sizes = [len(q["spec"]["kwargs"]["packed_args"]) for q in batches]
-    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
-    served = served_since(counted)
+    want = {name: (32 * len(batches) if name == "flash_attention" else 0) + b4[name]
+            for name in mods}
+    tally = served_since(counted)
     print(f"{tag} {len(requests)} requests in {len(batches)} batches of {sizes}; served "
-          f"{served}; serve executor processed {ex.processed}, failed {ex.failed}; "
+          f"{tally}; serve executor processed {ex.processed}, failed {ex.failed}; "
           f"launches {counts} (want {want}); leader replica {before} -> {after}")
-    check(sizes == [4, 4] and served["batches"] == 2 and ex.processed == 2
-          and ex.failed == 0, f"batches of {sizes}, {served}, processed {ex.processed}")
+    check(sizes == [4, 4] and tally["batches"] == 2 and ex.processed == 2
+          and ex.failed == 0, f"batches of {sizes}, {tally}, processed {ex.processed}")
     check(counts == want, f"launches {counts}, want {want}")
     check(after not in (None, f"n{before}"), f"the leader is {after} after killing {before}")
     for q in batches:
@@ -4159,14 +4344,18 @@ def phase_launch_serve() -> tuple[dict, dict]:
     torch.cuda.reset_peak_memory_stats()
     try:
         zero_launches(mods)
+        mark = trace.snapshot()
         res = serve_cli.main(LAUNCH_SERVE_ARGS)
         counts = {name: mod.launches for name, mod in mods.items()}
+        steps = engine_decode_steps(mark)
     finally:
         engine_mod.ServeEngine.generate, engine_mod.prefill = generate, prefill
     engine, batches = res["engine"], res["batches"]
     cfg = engine.cfg
     sizes = [len(b) for b in batches]
-    want = {name: 32 * len(batches) if name == "flash_attention" else 0 for name in mods}
+    b4 = decode_launches(cfg, steps)
+    want = {name: (32 * len(batches) if name == "flash_attention" else 0) + b4[name]
+            for name in mods}
     print(f"{tag} launch.serve {' '.join(LAUNCH_SERVE_ARGS)}: {cfg.num_layers} layers, d_model "
           f"{cfg.d_model}, {cfg.param_dtype}; batches of {sizes}; served {res['stats']}; "
           f"launches {counts} (want {want})")
@@ -4194,7 +4383,7 @@ def phase_launch_serve() -> tuple[dict, dict]:
     print(f"{tag} served tokens identical to generate on each batch the broker formed; "
           f"abstract_cache(cfg, 4, {engine.max_len}) equals both served prefills' caches: "
           f"{abstract}")
-    n_tok = res["stats"]["tokens"]
+    n_tok = res["stats"]["asked_tokens"]
     stats = {"wall_s": res["wall_s"], "tokens_per_s": n_tok / res["wall_s"],
              "requests_per_s": res["stats"]["requests"] / res["wall_s"], "engine_s": engine_s,
              "outside_engine_share": 1 - sum(engine_s) / res["wall_s"],
@@ -4381,6 +4570,7 @@ def main() -> int:
     worst_err = phase_kernel_cases()
     worst_wkv = phase_wkv_cases()
     worst_mamba = phase_mamba_cases()
+    worst_decode = phase_decode_cases()
     grad_stats = phase_grad()
     mark("kernels and grad")
     stablelm_counts, stats = phase_slice("stablelm-3b", "full", PROMPT_LENS, {"flash_attention": 32},
@@ -4521,7 +4711,8 @@ def main() -> int:
     kernels = [flash_row]
     wkv_row, prime = phase_wkv_timing(worst_wkv, launches["rwkv6_wkv"])
     mamba_row, serving = phase_mamba_timing(worst_mamba, launches["mamba_scan"])
-    kernels += [wkv_row, mamba_row]
+    decode_row, decode_rows = phase_decode_timing(worst_decode, launches["decode_attention"])
+    kernels += [wkv_row, mamba_row, decode_row]
     mark("timing")
     print(f"[done] {time.perf_counter() - t0:.1f} s; serving stablelm-3b {json.dumps(stats)}; "
           f"flash attention at serving shapes {json.dumps(flash_serving)}")
@@ -4529,6 +4720,7 @@ def main() -> int:
           f"{json.dumps(prime)}")
     print(f"[done] serving jamba-1.5-large-398b no-moe {json.dumps(jamba_stats)}; Mamba scan at "
           f"serving shapes {json.dumps(serving)}")
+    print(f"[done] decode attention (B4) {json.dumps(decode_rows)}")
     print(f"[done] serving mixtral-8x7b half-depth {json.dumps(mixtral_stats)}")
     print(f"[done] serving deepseek-v3-671b two-moe {json.dumps(deepseek_stats)}")
     print(f"[done] serving llama-3.2-vision-11b full {json.dumps(vision_stats)}")

@@ -18,10 +18,11 @@ from __future__ import annotations
 import contextlib
 from typing import Iterator
 
-from . import flash_attention, mamba_scan, rwkv6
+from . import decode_attention, flash_attention, mamba_scan, rwkv6
 
 # each kernel's module, by the name chip_smoke.py's kernels line gives it
-MODULES = {"flash_attention": flash_attention, "rwkv6_wkv": rwkv6, "mamba_scan": mamba_scan}
+MODULES = {"flash_attention": flash_attention, "rwkv6_wkv": rwkv6, "mamba_scan": mamba_scan,
+           "decode_attention": decode_attention}
 
 
 def counts() -> dict[str, int]:

@@ -3,9 +3,10 @@
 On the card's path (``on_card``: a CUDA tensor, or any tensor while a
 dry-run traces a cell for the card) each wrapper calls its kernel as a
 ``torch.library`` custom op at the model layout: ``repro_torch::
-flash_attention``, ``::rwkv6_chunked`` and ``::mamba_chunk_scan``. On a
-CUDA tensor the op launches the hand-written kernel or raises, with no
-fallback; on a CPU tensor it runs the plain twin. Each op has
+flash_attention``, ``::rwkv6_chunked``, ``::mamba_chunk_scan`` and
+``::decode_attention``. On a CUDA tensor the op launches the hand-written
+kernel or raises, with no fallback; on a CPU tensor it runs the plain
+twin. Each op has
 
 * a fake implementation (``register_fake``), so ``FakeTensorMode``
   traces it as one op that allocates only its outputs, as the kernel does;
@@ -21,6 +22,10 @@ fallback; on a CPU tensor it runs the plain twin. Each op has
   no backward kernel), with a fake, a count and a sharding of its own.
   This is the only gradient the kernels have: under grad, a CUDA
   tensor's forward launches the kernel once and its backward none.
+  ``::decode_attention`` serves decoding only and has no gradient; a
+  cache whose rows are sharded over the mesh goes to its partial op,
+  ``::decode_attention_partial``, on each shard, and the shards' partials
+  are joined in torch ops, so the cache is never gathered.
 
 On a CPU tensor off the card's path the wrappers run the twins directly,
 as before the ops existed, and the models' ``cfg.use_pallas`` picks
@@ -35,11 +40,12 @@ from typing import Iterator
 
 import torch
 from torch import Tensor
-from torch.distributed.tensor import Partial, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import register_sharding
 from torch.library import custom_op
 from torch.utils.flop_counter import register_flop_formula
 
+from . import decode_attention as da
 from . import flash_attention as fa
 from . import mamba_scan as ms
 from . import rwkv6 as wkv
@@ -421,3 +427,126 @@ def mamba_chunk_scan(
     if on_card(dt):
         return torch.ops.repro_torch.mamba_chunk_scan(dt, bmat, cmat, a, x, h0, chunk, d_block)
     return _scan_cpu(dt, bmat, cmat, a, x, h0, chunk, d_block)
+
+
+# ---------------------------------------------------------------------------
+# B4: decode attention against the KV cache, read in place
+# ---------------------------------------------------------------------------
+
+
+@custom_op("repro_torch::decode_attention", mutates_args=(), device_types="cuda")
+def _decode(q: Tensor, k: Tensor, v: Tensor, pos: Tensor) -> Tensor:
+    return da.decode_attention_cuda(q, k, v, pos)
+
+
+@_decode.register_kernel("cpu")
+def _decode_cpu(q, k, v, pos):
+    return da.decode_attention_plain(q, k, v, pos)
+
+
+@_decode.register_fake
+def _(q, k, v, pos):
+    return q.new_empty(q.shape, dtype=v.dtype)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _decode_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """``da.operations`` over all T rows of the cache: an upper bound, since
+    the live rows, min(pos + 1, T), are a value on the device, not a shape."""
+    b, _, h, d = q_shape
+    return da.operations(b, h, k_shape[1], d)
+
+
+@register_sharding(torch.ops.repro_torch.decode_attention.default)
+def _decode_sharding(q, k, v, pos):
+    """Replicated, batch-sharded, or head-sharded on q and k/v together
+    (``_flash_rules``' reasons); pos replicated. A cache sharded along its
+    rows never reaches the op (``decode_attention``)."""
+    rules = [([R], [R, R, R, R]), ([B0], [B0, B0, B0, R])]
+    if _divides(q.shape[2], q) and _divides(k.shape[2], q):
+        rules.append(([Shard(2)], [Shard(2)] * 3 + [R]))
+    return rules
+
+
+@custom_op("repro_torch::decode_attention_partial", mutates_args=(), device_types="cuda")
+def _decode_partial(q: Tensor, k: Tensor, v: Tensor, live: Tensor) -> Tensor:
+    return da.decode_partial_cuda(q, k, v, live)
+
+
+@_decode_partial.register_kernel("cpu")
+def _decode_partial_cpu(q, k, v, live):
+    return da.decode_partial_plain(q, k, v, live)
+
+
+@_decode_partial.register_fake
+def _(q, k, v, live):
+    b, _, h, d = q.shape
+    return q.new_empty((b, h, da.splits_for(b * k.shape[2], k.shape[1]), d + 2),
+                       dtype=torch.float32)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention_partial)
+def _decode_partial_flops(q_shape, k_shape, *args, **kwargs) -> int:
+    """As ``_decode_flops``, over every row of the shard."""
+    b, _, h, d = q_shape
+    return da.operations(b, h, k_shape[1], d)
+
+
+def _decode_row_sharded(q: DTensor, k: DTensor, v: DTensor, pos: Tensor) -> DTensor:
+    """B4 on a cache sharded along its rows (on the mesh dims in ``k``'s
+    placements that hold Shard(1)): each shard writes the partials of its
+    own live rows, clamp(min(pos + 1, T) - its first row, 0, its rows), and
+    ``da.combine_partials`` joins them across the shards, whose collectives
+    move (B, H) maxima and sums and (B, H, D) sums, never the cache. q and
+    out follow k's batch and head shards."""
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = k.device_mesh
+    rows = [isinstance(p, Shard) and p.dim == 1 for p in k.placements]
+    q = q.redistribute(mesh, [R if r else p for r, p in zip(rows, k.placements)])
+    v = v.redistribute(mesh, k.placements)
+    if isinstance(pos, DTensor):
+        pos = pos.redistribute(mesh, [R] * mesh.ndim).to_local()
+    k_local = k.to_local()
+    _, offset = compute_local_shape_and_global_offset(k.shape, mesh, k.placements)
+    live = ((pos.reshape(1) + 1).clamp(max=k.shape[1]) - offset[1]).clamp(0, k_local.shape[1])
+    part = torch.ops.repro_torch.decode_attention_partial(q.to_local(), k_local, v.to_local(),
+                                                           live)
+    # (B, H, splits, D + 2): k's batch shards on dim 0, its head shards on
+    # dim 1, and the splits of its row shards, in row order, on dim 2
+    placements = [Shard(_PART_DIM[p.dim]) if isinstance(p, Shard) else p for p in k.placements]
+    b, _, h, d = q.shape
+    shape = (b, h, part.shape[2] * _row_shards(k), d + 2)
+    part = DTensor.from_local(part, mesh, placements, run_check=False, shape=shape,
+                              stride=(h * shape[2] * (d + 2), shape[2] * (d + 2), d + 2, 1))
+    return da.combine_partials(part, v.dtype)
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k: torch.Tensor,  # (B, T, KV, D): the cache, this token's row written
+    v: torch.Tensor,
+    pos: torch.Tensor,  # (1,) int64: the token's position; rows t < min(pos + 1, T) attend
+) -> torch.Tensor:
+    """Out (B, 1, H, D) in v's dtype: B4 on the card's path, else its twin.
+    A DTensor cache sharded along its rows into equal shards is read where
+    it lies (``_decode_row_sharded``)."""
+    if on_card(q):
+        if isinstance(k, DTensor) and _row_shards(k) > 1 and k.shape[1] % _row_shards(k) == 0 \
+                and all(isinstance(p, Replicate) or isinstance(p, Shard) and p.dim in _PART_DIM
+                        for p in k.placements):
+            return _decode_row_sharded(q, k, v, pos)
+        return torch.ops.repro_torch.decode_attention(q, k, v, pos)
+    return _decode_cpu(q, k, v, pos)
+
+
+_PART_DIM = {0: 0, 1: 2, 2: 1}  # a cache dim (batch, rows, kv heads) -> its partials' dim
+
+
+def _row_shards(k: DTensor) -> int:
+    """The shards ``k``'s placements cut its rows (dim 1) into."""
+    shards = 1
+    for i, p in enumerate(k.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            shards *= k.device_mesh.size(i)
+    return shards

@@ -13,6 +13,9 @@ kernel's plain twin (True) or the port of the chunked
 ``blockwise_attention`` (False), so each CPU path can be held against its
 JAX counterpart; ``cross_attn_fwd`` follows the reference, which computes
 it with ``gqa_scores_softmax_out`` whatever ``use_pallas`` says.
+``attn_decode`` attends through ``ops.decode_attention``: on a CUDA
+tensor always the hand-written decode kernel (B4), which reads the cache
+in place; on the CPU the reference's masked ``gqa_scores_softmax_out``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from ..kernels import ops
+from ..kernels import decode_attention, ops
 from .layers import apply_rope, causal_mask
 from .sharding import grad_as_placed, shard_activation, split_sharded
 
@@ -61,16 +64,10 @@ def gqa_scores_softmax_out(
     v: torch.Tensor,  # (B, Skv, KV, D)
     mask: torch.Tensor | None,  # broadcastable to (B, KV, G, Sq, Skv) or (Sq, Skv)
 ) -> torch.Tensor:
-    b, sq, h, d = q.shape
-    kv = k.shape[2]
-    g = h // kv
-    qg = split_sharded(q, 2, kv).reshape(b, sq, kv, g, d)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * d**-0.5
-    if mask is not None:
-        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
-    probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
-    return out.reshape(b, sq, h, d)
+    """The reference's masked softmax attention (B4's plain twin holds its
+    arithmetic); a DTensor's query heads are first replicated unless their
+    shards split into whole kv groups."""
+    return decode_attention.gqa_scores_softmax_out(split_sharded(q, 2, k.shape[2]), k, v, mask)
 
 
 def blockwise_attention(
@@ -263,29 +260,24 @@ def attn_decode(
     cfg: ModelConfig,
 ) -> tuple[torch.Tensor, dict]:
     """One token against the cache. Writes this token's K/V into the cache
-    tensors in place (the reference returns updated copies). For a tensor
-    position the slot and the mask are tensor ops, so it never reaches
-    the host; for an int they are host arithmetic."""
+    tensors in place (the reference returns updated copies), then attends
+    over the live rows through ``ops.decode_attention``: B4 on the card's
+    path, which reads the position from the device, else the reference's
+    masked softmax (the rows a ring has written so far, or a contiguous
+    cache's rows <= pos). The slot is host arithmetic for an int position
+    and a tensor op for a tensor one, which never reaches the host."""
     if isinstance(pos, torch.Tensor):
         pos = pos.to(x_t.device)
     q, k_t, v_t = project_qkv(params, x_t)
+    pos_arr = position_tensor(pos, x_t.device)
     if cfg.use_rope:
-        pos_arr = position_tensor(pos, x_t.device)
         q = apply_rope(q, pos_arr, cfg.rope_theta)
         k_t = apply_rope(k_t, pos_arr, cfg.rope_theta)
 
     k, v = cache["k"], cache["v"]
-    ln = k.shape[1]
     ring = cfg.sliding_window > 0  # ring buffer — O(window) memory at any context length
-    slot = cache_slot(pos, ln, ring)
+    slot = cache_slot(pos, k.shape[1], ring)
     write_slot(k, slot, k_t)
     write_slot(v, slot, v_t)
-
-    # Validity: ring slots written so far; contiguous cache positions <= pos.
-    idx = torch.arange(ln, device=x_t.device)
-    if isinstance(pos, torch.Tensor):
-        valid = idx < (pos + 1).clamp(max=ln) if ring else idx <= pos
-    else:
-        valid = idx < min(pos + 1, ln) if ring else idx <= pos  # a ring is full once wrapped
-    out = gqa_scores_softmax_out(q, k, v, valid[None, None, None, None, :])
+    out = ops.decode_attention(split_sharded(q, 2, k.shape[2]), k, v, pos_arr)
     return project_out(out, params["wo"]), {"k": k, "v": v}

@@ -16,6 +16,7 @@ import torch
 
 import _ctypes
 from repro_torch.kernels import build as kbuild
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba_scan as ms
 from repro_torch.kernels import ops
@@ -103,6 +104,7 @@ def test_build_reports_a_failed_compile(tmp_path, monkeypatch):
     (fa, "flash_attention", "flash_attention_fwd", 14),
     (wkv, "rwkv6", "rwkv6_wkv_fwd", 13),
     (ms, "mamba_scan", "mamba_scan_fwd", 14),
+    (da, "decode_attention", "decode_attention_fwd", 18),
 ])
 def test_kernels_bind_through_the_shared_build(module, name, symbol, nargs, monkeypatch):
     calls = []
