@@ -87,30 +87,45 @@ def wkv_least(shapes: list, itemsize: int) -> float:
 
 
 def param_count(cfg: dict) -> int:
-    """Parameters of a configuration file's model (embedding and head included)."""
+    """Parameters of a configuration file's model (embedding and head
+    included), every expert among them: what sizes its memory."""
     from .. import weights
 
     return sum(math.prod(shape) for _, shape in weights.leaves(weights.layout(cfg)))
 
 
+def active_params(cfg: dict) -> int:
+    """N of the model FLOPs: the parameters a token passes through, the
+    family's ``active_params(cfg)`` where it has experts (a token passes
+    through its own), by default all of them."""
+    fam = models.family(cfg)
+    return fam.active_params(cfg) if hasattr(fam, "active_params") else param_count(cfg)
+
+
+def attention_layers(cfg: dict) -> int:
+    """The layers whose q·k and p·v count: the family's
+    ``attention_layers(cfg)`` where only some layers attend, by default
+    every layer of a family with ``ATTENTION`` and none of one without."""
+    fam = models.family(cfg)
+    if hasattr(fam, "attention_layers"):
+        return fam.attention_layers(cfg)
+    return cfg["num_hidden_layers"] if fam.ATTENTION else 0
+
+
 def request_flops(cfg: dict, prompt: int, output: int) -> int:
     """Model FLOPs of serving one request: 2·N a token for its prompt and
-    its asked output tokens, plus, for attention, q·k and p·v (4·layers·d)
-    for every position each token sees, itself included."""
-    flops = 2 * param_count(cfg) * (prompt + output)
-    if models.family(cfg).ATTENTION:
-        per_pos = 4 * cfg["num_hidden_layers"] * cfg["hidden_size"]
-        seen = sum(range(1, prompt + 1)) + sum(range(prompt + 1, prompt + output + 1))
-        flops += per_pos * seen
-    return flops
+    its asked output tokens (N the active parameters), plus q·k and p·v
+    (4·d an attention layer) for every position each token sees, itself
+    included."""
+    per_pos = 4 * attention_layers(cfg) * cfg["hidden_size"]
+    seen = sum(range(1, prompt + 1)) + sum(range(prompt + 1, prompt + output + 1))
+    return 2 * active_params(cfg) * (prompt + output) + per_pos * seen
 
 
 def train_step_flops(cfg: dict, batch: int, seq_len: int) -> int:
-    """Model FLOPs of one train step: 6·N a token, plus the forward's
-    attention over the causal pairs (4·layers·d a pair) three times
-    (forward and backward)."""
-    flops = 6 * param_count(cfg) * batch * seq_len
-    if models.family(cfg).ATTENTION:
-        pairs = attention_pairs(seq_len, seq_len)
-        flops += 3 * 4 * cfg["num_hidden_layers"] * cfg["hidden_size"] * pairs * batch
-    return flops
+    """Model FLOPs of one train step: 6·N a token (N the active
+    parameters), plus the forward's q·k and p·v over the causal pairs (4·d
+    a pair and attention layer) three times (forward and backward)."""
+    attention = 3 * 4 * attention_layers(cfg) * cfg["hidden_size"] * attention_pairs(
+        seq_len, seq_len) * batch
+    return 6 * active_params(cfg) * batch * seq_len + attention

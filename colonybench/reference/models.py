@@ -1,16 +1,16 @@
-"""Plain float32 forward passes: the embedding, a family's block per
-layer (``reference/<family>.py``, found by the configuration's
-``family``), the final LayerNorm and an untied head.
+"""Plain float32 forward passes: the embedding, a family's blocks group by
+group (``reference/<family>.py``, found by the configuration's
+``family``), its final norm and an untied head.
 
 Every product goes through ``_einsum``, which computes in full float32
 (TF32 off) or, for the control, in TF32: the card's own TF32 on a CUDA
 tensor, inputs rounded to TF32's 10 mantissa bits on the CPU. The models
 read the parameter tree that ``colonybench.weights`` makes (the port's
-layout: stacked ``(layers, ...)`` leaves under ``groups.b0``) and take
-nothing else from the program. Departures from the published models are
-listed under ``assumed`` in each configuration file. Sequences are run
-together, right-padded: every step is causal, so the padding after a
-sequence never reaches its positions.
+layout: the blocks ``groups.b0``, ``groups.b1``, ... of a group, each leaf
+stacked over the groups) and take nothing else from the program.
+Departures from the published models are listed under ``assumed`` in each
+configuration file. Sequences are run together, right-padded: every step
+is causal, so the padding after a sequence never reaches its positions.
 """
 
 from __future__ import annotations
@@ -74,9 +74,52 @@ def _layer(tree: dict, i: int) -> dict:
 
 def family(cfg: dict):
     """The module of ``cfg``'s family, found by name: ``reference/<family>.py``
-    (its ``block``, ``layout``, ``EPS_KEY`` and the rest that differ
-    between families)."""
+    (its blocks, layout, final norm and counts, each with a default the
+    README's "Adding a configuration" lists)."""
     return importlib.import_module(f"colonybench.reference.{cfg['family']}")
+
+
+def _block_keys(groups: dict) -> list[str]:
+    """A group's blocks in the port's index order: ``b0``, ``b1``, ...,
+    ``b9``, ``b10``."""
+    return sorted(groups, key=lambda key: int(key[1:]))
+
+
+def _num_groups(tree: dict) -> int:
+    """The leading axis of the first stacked leaf."""
+    leaf = next(iter(tree.values()))
+    return _num_groups(leaf) if isinstance(leaf, dict) else leaf.shape[0]
+
+
+def _run(block, p: dict, x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    return block(p, x, cfg)
+
+
+def _final_layer_norm(p: dict, h: torch.Tensor, cfg: dict) -> torch.Tensor:
+    return _layer_norm(h, p["scale"], p["bias"], cfg[family(cfg).EPS_KEY])
+
+
+def hidden(params: dict, cfg: dict, x: torch.Tensor, rows: list[list[int]] | None = None,
+           call=_run):
+    """The embedded ``x`` (B, S, d) through every group in turn, inside each
+    its blocks in index order, then the family's final norm: over every
+    position, or over each sequence's positions ``rows[i]``, a list of
+    (len(rows[i]), d) tensors. The family gives its blocks by key as
+    ``blocks(cfg)`` (by default ``{"b0": block}``) and its final norm as
+    ``apply_final_norm(p, h, cfg)`` (by default a LayerNorm with bias, eps
+    ``cfg[EPS_KEY]``). ``call(block, p, x, cfg)`` runs each block, for
+    training under recomputation."""
+    fam = family(cfg)
+    blocks = fam.blocks(cfg) if hasattr(fam, "blocks") else {"b0": fam.block}
+    groups = params["groups"]
+    keys = _block_keys(groups)
+    for g in range(_num_groups(groups)):
+        for key in keys:
+            x = call(blocks[key], _layer(groups[key], g), x, cfg)
+    norm = getattr(fam, "apply_final_norm", _final_layer_norm)
+    if rows is None:
+        return norm(params["norm_f"], x, cfg)
+    return [norm(params["norm_f"], x[b, pos], cfg) for b, pos in enumerate(rows)]
 
 
 @torch.no_grad()
@@ -86,12 +129,4 @@ def logits_at(params: dict, cfg: dict, tokens: torch.Tensor,
     at its positions ``rows[i]``: a (len(rows[i]), vocab) tensor each. The
     blocks run one layer at a time over the whole batch."""
     x = params["embed"][tokens.long()].float()
-    fam = family(cfg)
-    for i in range(cfg["num_hidden_layers"]):
-        x = fam.block(_layer(params["groups"]["b0"], i), x, cfg)
-    out = []
-    for b, pos in enumerate(rows):
-        h = _layer_norm(x[b, pos], params["norm_f"]["scale"], params["norm_f"]["bias"],
-                        cfg[fam.EPS_KEY])
-        out.append(_einsum("sd,dv->sv", h, params["lm_head"]))
-    return out
+    return [_einsum("sd,dv->sv", h, params["lm_head"]) for h in hidden(params, cfg, x, rows)]

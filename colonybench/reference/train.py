@@ -72,14 +72,12 @@ def batch_at(seed: int, step: int, batch: int, seq_len: int, vocab: int) -> np.n
     return toks
 
 
+def _recomputed(block, p: dict, x: torch.Tensor, cfg: dict) -> torch.Tensor:
+    return checkpoint(block, p, x, cfg, use_reentrant=False)
+
+
 def loss(params: dict, cfg: dict, tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"][tokens]
-    fam = models.family(cfg)
-    for i in range(cfg["num_hidden_layers"]):
-        x = checkpoint(fam.block, models._layer(params["groups"]["b0"], i), x, cfg,
-                       use_reentrant=False)
-    h = models._layer_norm(x, params["norm_f"]["scale"], params["norm_f"]["bias"],
-                           cfg[fam.EPS_KEY])
+    h = models.hidden(params, cfg, params["embed"][tokens], call=_recomputed)
     logits = models._einsum("bsd,dv->bsv", h[:, :-1], params["lm_head"])
     gold = logits.gather(-1, tokens[:, 1:, None])[..., 0]
     return (torch.logsumexp(logits, -1) - gold).mean()
